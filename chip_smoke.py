@@ -22,7 +22,8 @@ Phases, each printing one JSON line:
            been launched by the sweep itself
   sharded  two of those workloads again with ``workers=2``: the spawned
            children each create their own CUDA context and load the built
-           libraries, and must give the serial sweep's cells
+           libraries; they must give the serial sweep's cells and report
+           launches of both kernels, and a failing shard fails the phase
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. Without a CUDA card the script exits at once with code 2.
@@ -54,14 +55,14 @@ import numpy as np  # noqa: E402
 
 from repro_torch.core.backends import batched  # noqa: E402
 from repro_torch.core.nvm import NVMConfig  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, launch_counts  # noqa: E402
 from repro_torch.kernels.abft_matmul import kernel as mm_kernel  # noqa: E402
 from repro_torch.kernels.abft_matmul import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.checksum_verify import kernel as cv_kernel  # noqa: E402
 from repro_torch.kernels.checksum_verify import ops as cv_ops  # noqa: E402
 from repro_torch.scenarios import (CrashPlan, TornSpec,  # noqa: E402
                                    deterministic_cell_dict, sweep)
-from repro_torch.scenarios import batched_engine  # noqa: E402
+from repro_torch.scenarios import batched_engine, driver  # noqa: E402
 
 PHASES = ("card", "build", "kernels", "sweep", "sharded")
 
@@ -395,24 +396,36 @@ def phase_sweep(records: list) -> None:
 
 def phase_sharded() -> None:
     """A sharded batched sweep after CUDA is initialised in this process:
-    the workers must be spawned, select the card themselves, and give the
-    serial sweep's cells."""
+    the workers must be spawned, select the card themselves, build or
+    load the kernel libraries, launch both kernels and give the serial
+    sweep's cells. A batched shard is never degraded to another mode
+    (``driver._degrade_job``), so a worker that fails on the card fails
+    this phase; the workers' own launch counts come back with their
+    results."""
     kw = dict(strategies=STRATEGIES, plans=_torn_plans(),
               cfg=NVMConfig(cache_bytes=1024 * 1024), engine="fork",
               mode="batched")
     specs = [WORKLOADS[1], WORKLOADS[3]]
     serial = sweep(specs, workers=1, **kw)
+    before = launch_counts()
     t0 = time.perf_counter()
     sharded = sweep(specs, workers=2, shard_retries=0, shard_timeout=240.0,
                     **kw)
     seconds = time.perf_counter() - t0
+    if launch_counts() != before:
+        raise AssertionError("the sharded sweep launched in the parent")
     if [_cell(c) for c in sharded] != [_cell(c) for c in serial]:
         raise AssertionError("sharded batched sweep differs from serial")
     if any("batched_fallback" in c.info for c in sharded
            if c.strategy == "adcc"):
         raise AssertionError("a sharded adcc cell fell back")
+    worker_launches = dict(driver.shard_launches)
+    for kernel in ("abft_matmul", "tile_sums"):
+        if worker_launches.get(kernel, 0) <= 0:
+            raise AssertionError(f"the spawned workers never launched the "
+                                 f"{kernel} kernel: {worker_launches}")
     emit({"phase": "sharded", "workers": 2, "cells": len(sharded),
-          "seconds": seconds})
+          "seconds": seconds, "worker_launches": worker_launches})
 
 
 def main() -> None:

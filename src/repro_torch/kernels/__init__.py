@@ -9,9 +9,11 @@ CUDA tensor and takes the plain PyTorch version beside it only for a
 tensor that lies on the CPU.
 """
 
+from typing import Dict
+
 from ..device import get_device
 
-__all__ = ["on_cuda"]
+__all__ = ["launch_counts", "on_cuda"]
 
 
 def on_cuda() -> bool:
@@ -19,3 +21,11 @@ def on_cuda() -> bool:
     CUDA card — the choice between the dense kernel route and the
     sparse host route of the batched CG scan."""
     return get_device().type == "cuda"
+
+
+def launch_counts() -> Dict[str, int]:
+    """This process's kernel launches so far, by kernel name."""
+    from .abft_matmul import kernel as mm_kernel
+    from .checksum_verify import kernel as cv_kernel
+    return {"abft_matmul": mm_kernel.launches,
+            "tile_sums": cv_kernel.launches}

@@ -7,9 +7,8 @@ of the source and the flags, so a changed source is rebuilt and an
 unchanged one is reused. Nothing is built when the package is imported:
 the first launch on a CUDA tensor calls :func:`load`.
 
-The build directory is ``build/repro_torch/`` beside ``src/`` unless
-``REPRO_TORCH_BUILD_DIR`` names another. Every compile runs with
-``-Xptxas -v``, so the build log states each kernel's registers, shared
+The build directory is ``build/repro_torch/`` beside ``src/``. Every
+compile runs with ``-Xptxas -v``, so the build log states each kernel's registers, shared
 memory and spills.
 """
 
@@ -40,9 +39,6 @@ def source_names() -> List[str]:
 
 
 def build_dir() -> Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
     # src/repro_torch/kernels/_build.py -> the directory that holds src/
     return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 

@@ -69,6 +69,7 @@ import numpy as np
 
 from ..core.nvm import NestedCrashFault, NVMConfig
 from ..device import selected_device, use_device
+from ..kernels import launch_counts
 from .crashplan import CrashPlan, CrashPoint
 from .strategies import STRATEGIES, ConsistencyStrategy, make_strategy
 from .workloads import (WORKLOADS, Workload, make_workload,
@@ -78,7 +79,7 @@ __all__ = ["ScenarioResult", "run_scenario", "sweep", "DEFAULT_SWEEP_PLANS",
            "AVG_STEP_JITTER_FLOOR", "SWEEP_ENGINES", "SWEEP_MODES",
            "WALL_CLOCK_FIELDS", "FULL_RUN_FIELDS", "FORK_ONLY_FIELDS",
            "deterministic_cell_dict", "measure_divergence_fields",
-           "classify_recovery"]
+           "classify_recovery", "shard_launches"]
 
 # Below this measured mean step wall-time, per-step timing is dominated
 # by timer resolution / interpreter jitter, so ``avg_step_seconds``
@@ -89,6 +90,11 @@ AVG_STEP_JITTER_FLOOR = 1e-3
 
 SWEEP_ENGINES = ("fork", "rerun")
 SWEEP_MODES = ("full", "measure", "batched")
+
+# Kernel launches made by the workers of the last ``sweep(workers>1)``,
+# summed over its shards by kernel name: the parent's own counters never
+# see a launch made in a child process.
+shard_launches: Dict[str, int] = {}
 
 # ScenarioResult fields derived from host wall-clock measurement.
 # Everything else is deterministic — modeled seconds, traffic counts,
@@ -823,11 +829,17 @@ def _run_pair_job(job) -> Tuple[List[ScenarioResult], List[Dict[str, str]]]:
 def _run_pair_job_on(dev: Optional[str], job):
     """:func:`_run_pair_job` under the parent's device selection: a
     spawned worker starts with none of its own, and would otherwise ask
-    for the default card even when the parent runs on the CPU."""
+    for the default card even when the parent runs on the CPU. Returns
+    the job's results, its skipped cells and the kernel launches the
+    job made in this worker, by kernel name."""
+    before = launch_counts()
     if dev is None:
-        return _run_pair_job(job)
-    with use_device(dev):
-        return _run_pair_job(job)
+        results, skipped = _run_pair_job(job)
+    else:
+        with use_device(dev):
+            results, skipped = _run_pair_job(job)
+    after = launch_counts()
+    return results, skipped, {k: after[k] - before[k] for k in after}
 
 
 def _check_parallelizable(workloads: Sequence, strategies: Sequence) -> None:
@@ -864,22 +876,26 @@ def _validate_sweep_specs(workloads: Sequence, strategies: Sequence) -> None:
 
 
 def _degrade_job(job, reason: str):
-    """Graceful-degradation hook for sharded sweeps: step a failed
-    shard's evaluation mode down the cost/fragility ladder
-    batched -> measure -> full. The batched evaluator leans on the CUDA
-    runtime (the likeliest component to die or wedge in a worker);
-    measure leans on per-cell snapshots; full is the plain rerun-style
-    execution path. All three agree on every deterministic field, so a
-    degraded shard changes how cells are computed, never what they say.
-    Point-shard jobs degrade the same way — the trailing options dict
-    (shard slice, snapshot-tier knobs) is preserved verbatim.
+    """Graceful-degradation hook for sharded sweeps: a measure shard
+    whose worker keeps dying or hanging steps down to full, the plain
+    rerun-style execution path. Both agree on every deterministic field,
+    so a degraded shard changes how cells are computed, never what they
+    say. Point-shard jobs degrade the same way — the trailing options
+    dict (shard slice, snapshot-tier knobs) is preserved verbatim.
+
+    Two failures are never healed this way and raise
+    :class:`~repro_torch.scenarios.pool.ShardFailure` instead. A batched
+    shard does not step down to measure: its cells would come back
+    identical and unmarked, computed per cell on the host, and a kernel
+    that does not build or launch on the selected card would go unseen.
+    And a worker that raised (``reason == "error"``) reports a fault in
+    the code, which another mode must not hide; the failure carries the
+    worker's traceback.
     """
     wl_spec, strat_spec, plans, cfg, engine, mode = job[:6]
-    step_down = {"batched": "measure", "measure": "full"}
-    nxt = step_down.get(mode)
-    if nxt is None:
+    if reason == "error" or mode != "measure":
         return None
-    return (wl_spec, strat_spec, plans, cfg, engine, nxt) + tuple(job[6:])
+    return (wl_spec, strat_spec, plans, cfg, engine, "full") + tuple(job[6:])
 
 
 def sweep(workloads: Sequence = ("cg", "mm", "xsbench"),
@@ -954,8 +970,12 @@ def sweep(workloads: Sequence = ("cg", "mm", "xsbench"),
     gets a wall-clock deadline (``shard_timeout`` seconds, default from
     ``REPRO_SWEEP_SHARD_TIMEOUT`` or 600), a worker that dies or hangs
     is re-dispatched with exponential backoff up to ``shard_retries``
-    times, and a shard that keeps failing degrades its evaluation mode
-    batched -> measure -> full before the sweep gives up.
+    times, and a measure shard whose worker keeps dying or hanging
+    degrades to full before the sweep gives up. A batched shard never
+    degrades, and neither does a shard whose worker raised: both fail
+    the sweep (:func:`_degrade_job`). The kernel launches that the
+    shards of the last sharded sweep made in their workers are summed
+    in :data:`shard_launches`.
     ``journal=<path>`` appends each completed shard to a jsonl journal
     so an interrupted sweep resumed with the same arguments re-executes
     only the missing shards (the journal is deleted on success).
@@ -1050,13 +1070,16 @@ def sweep(workloads: Sequence = ("cg", "mm", "xsbench"),
         # the merge is job-major (= pair-major, point-shard-minor, i.e.
         # plan-major point-minor within each pair) and deterministic no
         # matter which worker finishes first or how often one is healed
-        for pair_results, pair_skipped in run_sharded(
+        shard_launches.clear()
+        for pair_results, pair_skipped, pair_launches in run_sharded(
                 jobs, worker_fn, min(workers, len(jobs)),
                 timeout=shard_timeout, retries=shard_retries,
                 journal=journal, chaos=chaos, degrade=_degrade_job,
                 start_method=start):
             results.extend(pair_results)
             skipped.extend(pair_skipped)
+            for kernel, count in pair_launches.items():
+                shard_launches[kernel] = shard_launches.get(kernel, 0) + count
             if progress is not None:
                 for res in pair_results:
                     progress(res)

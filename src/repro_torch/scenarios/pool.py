@@ -18,9 +18,10 @@ per shard and the same resilience loop the scenario layer studies:
   that never failed;
 * **graceful degradation** — when retries are exhausted (or the shard
   raised a real exception, which a retry would only repeat), an
-  optional ``degrade`` hook maps the job to a cheaper equivalent (the
-  sweep layer steps batched → measure → full) before giving up with
-  :class:`ShardFailure`;
+  optional ``degrade`` hook maps the job to a cheaper equivalent, or
+  declines with ``None`` (the sweep layer steps a measure shard that
+  died or hung down to full, and declines for a batched shard and for a
+  worker's exception), before giving up with :class:`ShardFailure`;
 * **resume** — with ``journal=<path>``, every completed shard is
   appended to a jsonl journal keyed by a fingerprint of its job; a
   re-run with the same jobs preloads the completed shards and

@@ -166,22 +166,44 @@ def test_dense_route_beyond_gemm_max_n_falls_back(monkeypatch):
                    if r.strategy != "adcc")
 
 
-def test_sharded_sweep_equals_serial(monkeypatch):
+def test_sharded_sweep_equals_serial():
     """Batched shards are spawned (a forked child can use neither the
     parent's CUDA context nor its intra-op thread pool) and inherit the
-    parent's device selection. A shard that hung or died would be healed
-    by degrading it to measure mode, which gives the same cells: so the
-    degrade hook is made to fail the test instead."""
+    parent's device selection; on the CPU their workers report that they
+    launched no kernel."""
     import repro_torch.scenarios.driver as port_driver
-    degraded = []
-    monkeypatch.setattr(port_driver, "_degrade_job",
-                        lambda job, reason: degraded.append(reason))
     serial = _cells(port_sc, _sweep(port_sc, port_nvm, "mm", "batched"))
     sharded = _cells(port_sc, _sweep(port_sc, port_nvm, "mm", "batched",
                                      workers=2, shard_timeout=120.0,
                                      shard_retries=0))
-    assert degraded == []
     assert sharded == serial == _reference_measure("mm")
+    assert port_driver.shard_launches == {"abft_matmul": 0, "tile_sums": 0}
+
+
+@pytest.mark.parametrize("mode,reason,want", [
+    ("batched", "died", None), ("batched", "timeout", None),
+    ("batched", "error", None), ("measure", "error", None),
+    ("measure", "died", "full"), ("measure", "timeout", "full"),
+    ("full", "died", None)])
+def test_degrade_never_hides_a_batched_shard_or_an_exception(mode, reason,
+                                                             want):
+    """A batched shard stepped down to measure would return the same
+    cells, unmarked, without the kernels: it must fail instead."""
+    import repro_torch.scenarios.driver as port_driver
+    job = (WORKLOADS["mm"], "adcc", (), None, "fork", mode,
+           {"shard": (0, 2)})
+    got = port_driver._degrade_job(job, reason)
+    if want is None:
+        assert got is None
+    else:
+        assert got == job[:5] + (want,) + job[6:]
+
+
+def test_failing_batched_shard_fails_the_sweep():
+    from repro_torch.scenarios.pool import ShardFailure
+    with pytest.raises(ShardFailure):
+        _sweep(port_sc, port_nvm, "mm", "batched", workers=2,
+               shard_timeout=120.0, shard_retries=0, chaos={0: "kill"})
 
 
 # ---------------------------------------------------------------------------
