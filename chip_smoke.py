@@ -4,7 +4,7 @@ GPU: the quickest proof that the port still builds, starts and agrees
 with itself on the card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
-    python3 chip_smoke.py --phases card,build,kernels   # a prefix, to debug
+    python3 chip_smoke.py --phases card,build,kernels   # some, in order, to debug
 
 Phases, each printing one JSON line:
 
@@ -12,9 +12,11 @@ Phases, each printing one JSON line:
   build    nvcc-compiles every kernel under src/repro_torch/kernels/csrc
            (one nvcc per source, started together)
   kernels  each CUDA kernel against its plain PyTorch version on the card,
-           at the shapes the batched sweep gives it and at ragged ones,
-           with the tolerance stated, timed with CUDA events beside the
-           plain version, one library call and the card's bound
+           at the shapes its main path gives it (the batched sweep's for
+           abft_matmul and tile_sums, the llama3-8b prefill's for
+           flash_attention) and at ragged ones, with the tolerance stated,
+           timed with CUDA events beside the plain version, one library
+           call and the card's bound
   sweep    the port's main path, ``sweep(engine="fork", mode="batched")``,
            on four workloads under the torn-crash figure's strategies and
            full plans; every cell must equal the port's ``mode="measure"``
@@ -24,6 +26,13 @@ Phases, each printing one JSON line:
            children each create their own CUDA context and load the built
            libraries; they must give the serial sweep's cells and report
            launches of both kernels, and a failing shard fails the phase
+  serve    the dense LM's serving path on llama3-8b at full width and full
+           depth, random weights from a seeded generator on the card:
+           prefill of 2 prompts x 4096 tokens with flash attention (the
+           kernel must launch once per layer), the same forward with plain
+           attention beside it, 32 greedy KV-cache decode steps, and a
+           teacher-forced decode of 16 prompt tokens that must give the
+           plain forward's logits; prints tokens per second and peak memory
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. Without a CUDA card the script exits at once with code 2.
@@ -60,11 +69,15 @@ from repro_torch.kernels.abft_matmul import kernel as mm_kernel  # noqa: E402
 from repro_torch.kernels.abft_matmul import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.checksum_verify import kernel as cv_kernel  # noqa: E402
 from repro_torch.kernels.checksum_verify import ops as cv_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.launch.specs import make_batch  # noqa: E402
+from repro_torch.models import build_model, get_config  # noqa: E402
 from repro_torch.scenarios import (CrashPlan, TornSpec,  # noqa: E402
                                    deterministic_cell_dict, sweep)
 from repro_torch.scenarios import batched_engine, driver  # noqa: E402
 
-PHASES = ("card", "build", "kernels", "sweep", "sharded")
+PHASES = ("card", "build", "kernels", "sweep", "sharded", "serve")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): the bounds
 # below are stated against these whatever the card's power limit is.
@@ -72,6 +85,32 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float64: 67e12,     # FP64 tensor-core rate, the
               torch.float32: 67e12,     # card's highest for the type
               torch.bfloat16: 989e12}
+
+# the serving phase: llama3-8b at full width and depth, the prefill shape
+# of the flash kernel's record
+SERVE_ARCH = "llama3-8b"
+SERVE_BATCH, SERVE_PROMPT = 2, 4096
+SERVE_DECODE_STEPS = 32
+SERVE_TEACHER_TOKENS = 16
+SERVE_SEED = 12
+# bf16 logits of the flash forward, and of a teacher-forced decode, against
+# the plain-attention forward on the same weights. The two paths round at
+# other points (the plain one rounds the probabilities to bf16 before P.V,
+# the kernel keeps them in f32) and cuBLAS sums 2 decode rows in another
+# order than 8192 prefill rows. On an H100 the full-depth model gave 0.0176
+# (flash) and 0.0210 (teacher-forced) with a largest logit of 1.38, and
+# greedy argmax agreement of 97.6 % and 96.9 %: the bounds sit at about
+# 2.5 x the readings, and the argmax share must stay above 90 %.
+SERVE_ATOL = 0.05
+SERVE_ARGMAX_FLOOR = 0.9
+
+# flash_attention in bf16 against its plain version: both compute in
+# float32 from the same bf16 inputs and differ only where the final
+# rounding to bf16 falls on another side, by one bf16 ulp, at most 2^-7 of
+# the value. The bound is two ulps relative; the atol only covers values
+# that round near zero.
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 1.6e-2, 1e-5
+FLASH_F32_TOL = 1e-5
 
 # the torn-crash figure's sweep axes (benchmarks/fig_torn.py, full size)
 TORN_SEED = 23
@@ -219,6 +258,7 @@ def phase_kernels() -> list:
     filled in by the sweep phase."""
     dev = torch.device("cuda")
     checks = _matmul_checks(dev) + _tile_sums_checks(dev)
+    checks += _flash_checks(dev)
     emit({"phase": "kernel_checks", "cases": checks})
 
     records = []
@@ -295,7 +335,115 @@ def phase_kernels() -> list:
                                        torch.sum(x, dim=1)), 10),
         "library_call": "torch.sum(x, 2) and torch.sum(x, 1)",
     })
+    del V, x, row, col, rowp, colp
+    records.append(_flash_record(dev))
+    torch.cuda.empty_cache()
     return records
+
+
+def _flash_checks(dev) -> list:
+    """flash_attention against its plain version: the reference's four
+    shapes, ragged S, GQA and MHA, head dims 16-128, causal and not, a
+    strided view. Tolerances: float32 ``1e-5``, the reference's
+    (tests/test_kernels.py; summation order of a float32 softmax, both
+    sides full float32, no TF32); bfloat16 two ulps of the value
+    (``FLASH_BF16_RTOL``), far tighter than the reference's ``5e-2``
+    because both sides compute in float32 from the same bf16 inputs."""
+    out = []
+    cases = [((2, 128, 4, 2, 32), torch.float32, True),
+             ((1, 256, 2, 2, 64), torch.float32, True),
+             ((2, 64, 8, 2, 16), torch.float32, True),
+             ((1, 64, 4, 4, 32), torch.float32, True),       # MHA
+             ((2, 72, 4, 2, 32), torch.float32, True),       # ragged
+             ((1, 200, 8, 2, 128), torch.float32, True),     # ragged, hd 128
+             ((1, 100, 4, 2, 64), torch.float32, False),     # not causal
+             ((2, 72, 4, 2, 32), torch.bfloat16, True),
+             ((1, 130, 32, 8, 128), torch.bfloat16, True),   # llama3 heads
+             ((1, 64, 4, 4, 32), torch.bfloat16, True)]
+    for (B, S, H, KV, hd), dtype, causal in cases:
+        rng = np.random.default_rng(B * 1000 + S * 10 + hd)
+        q, k, v = (torch.from_numpy(rng.normal(size=(B, S, n, hd))
+                                    ).to(dev, dtype) for n in (H, KV, KV))
+        got = fa_ops.flash_attention(q, k, v, causal=causal)
+        want = fa_kernel.flash_attention_plain(q, k, v, causal=causal)
+        rtol, atol = ((FLASH_F32_TOL, FLASH_F32_TOL)
+                      if dtype == torch.float32
+                      else (FLASH_BF16_RTOL, FLASH_BF16_ATOL))
+        name = (f"flash_attention{(B, S, H, KV, hd)}/{str(dtype)[6:]}"
+                f"{'' if causal else ' not causal'}")
+        out.append({"case": name, "rtol": rtol, "atol": atol,
+                    "max_abs_err": check_close(name, got, want, rtol, atol)})
+    # q/k/v as head views of one fused projection, read in place
+    rng = np.random.default_rng(5)
+    B, S, H, KV, hd = 2, 96, 8, 2, 64
+    fused = torch.from_numpy(rng.normal(size=(B, S, (H + 2 * KV) * hd))
+                             ).to(dev, torch.float32)
+    q = fused[..., :H * hd].reshape(B, S, H, hd)
+    k = fused[..., H * hd:(H + KV) * hd].reshape(B, S, KV, hd)
+    v = fused[..., (H + KV) * hd:].reshape(B, S, KV, hd)
+    name = "flash_attention strided views"
+    err = check_close(name, fa_ops.flash_attention(q, k, v),
+                      fa_kernel.flash_attention_plain(q, k, v),
+                      FLASH_F32_TOL, FLASH_F32_TOL)
+    out.append({"case": name, "rtol": FLASH_F32_TOL, "atol": FLASH_F32_TOL,
+                "max_abs_err": err})
+    return out
+
+
+def _flash_record(dev) -> dict:
+    """B3 at the serving prefill's shape: one layer of llama3-8b on
+    2 x 4096 tokens, q (2,4096,32,128), k/v (2,4096,8,128) in bf16.
+    The same inputs in float32 are held to ``1e-5`` first: at S = 4096 a
+    row's output is about sqrt(e/n) of unit-normal v, a few hundredths,
+    so only a tight bound sees a key tile lost or counted twice in the
+    late rows."""
+    cfg = get_config(SERVE_ARCH)
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev,
+                           dtype=torch.float32) for n in (H, KV, KV))
+    f32_err = check_close("flash_attention prefill f32",
+                          fa_ops.flash_attention(q, k, v),
+                          fa_kernel.flash_attention_plain(q, k, v),
+                          FLASH_F32_TOL, FLASH_F32_TOL)
+    torch.cuda.empty_cache()
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = fa_ops.flash_attention(q, k, v)
+    want = fa_kernel.flash_attention_plain(q, k, v)
+    err = check_close("flash_attention prefill bf16", got, want,
+                      FLASH_BF16_RTOL, FLASH_BF16_ATOL)
+    del got, want
+    # causal: each of the S(S+1)/2 visible (query, key) pairs of a head
+    # costs hd multiply-adds for q.k and hd for p.v
+    flops = 4.0 * hd * B * H * S * (S + 1) / 2
+    nbytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    by_ops = flops / PEAK_FLOPS[torch.bfloat16]
+    by_bytes = nbytes / PEAK_BYTES_PER_S
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:97",
+        "shape": f"prefill bf16 q ({B},{S},{H},{hd}), k/v ({B},{S},{KV},{hd}),"
+                 f" causal",
+        "launches": None, "max_abs_err": err,
+        "tolerance": f"rtol {FLASH_BF16_RTOL}, atol {FLASH_BF16_ATOL}",
+        "f32_max_abs_err": f32_err,
+        "f32_tolerance": f"rtol {FLASH_F32_TOL}, atol {FLASH_F32_TOL}",
+        "ms": time_ms(lambda: fa_ops.flash_attention(q, k, v), 10),
+        "launch_only_ms": time_ms(
+            lambda: fa_kernel.flash_attention_cuda(q, k, v), 10),
+        "plain_ms": time_ms(
+            lambda: fa_kernel.flash_attention_plain(q, k, v), 3),
+        "bound_ms": 1e3 * max(by_ops, by_bytes),
+        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+        "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True), 10),
+        "library_call": "torch.nn.functional.scaled_dot_product_attention"
+                        "(is_causal=True, enable_gqa=True)",
+    }
 
 
 def _torn_plans():
@@ -325,6 +473,7 @@ def phase_sweep(records: list) -> None:
         # counts to zero just before the main path, read just after
         mm_kernel.launches = 0
         cv_kernel.launches = 0
+        fa_kernel.launches = 0
         batched.reset_profile()
         batched_engine.reset_stats()
         t0 = time.perf_counter()
@@ -333,6 +482,8 @@ def phase_sweep(records: list) -> None:
         t_batched = time.perf_counter() - t0
         launches = {"abft_matmul": mm_kernel.launches,
                     "tile_sums": cv_kernel.launches}
+        if fa_kernel.launches:
+            raise AssertionError(f"{spec}: the sweep launched flash_attention")
         profile = dict(batched.profile)
         stats = dict(batched_engine.stats)
 
@@ -384,9 +535,11 @@ def phase_sweep(records: list) -> None:
         })
         emit({"phase": "sweep", **per_workload[-1]})
     for rec in records:
-        rec["launches"] = total_launches[rec["name"]]
-        if rec["launches"] <= 0:
-            raise AssertionError(f"main path never launched {rec['name']}")
+        if rec["name"] in total_launches:
+            rec["launches"] = total_launches[rec["name"]]
+            if rec["launches"] <= 0:
+                raise AssertionError(f"main path never launched "
+                                     f"{rec['name']}")
     emit({"phase": "sweep_total",
           "cells": sum(w["cells"] for w in per_workload),
           "batched_seconds": sum(w["batched_seconds"] for w in per_workload),
@@ -428,14 +581,227 @@ def phase_sharded() -> None:
           "seconds": seconds, "worker_launches": worker_launches})
 
 
+def _device_profile(fn) -> dict:
+    """Kernel time on the card during ``fn()`` by torch.profiler, beside
+    the host wall time around it (ending in a synchronize): the device's
+    busy and idle share and the time by kernel group. Only events that ran
+    on the device count (kernels, copies); "Command Buffer Full" marks the
+    host waiting for room in the launch queue and is reported on its own.
+    The profiler's own host cost inflates the wall time, so the idle share
+    is an upper bound. A profiler that fails or sees no device time fails
+    the phase: the serve line's breakdown must come from its own run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    try:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        prof.stop()
+    groups = {"flash_attention": 0.0, "gemm": 0.0, "copy_cast": 0.0,
+              "other": 0.0}
+    by_name, queue_full, n_device = {}, 0.0, 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        sec = evt.time_range.elapsed_us() / 1e6
+        name = evt.name
+        if name.startswith("Command Buffer Full"):
+            queue_full += sec
+            continue
+        n_device += 1
+        by_name[name] = by_name.get(name, 0.0) + sec
+        low = name.lower()
+        if "flash_fwd_kernel" in low:
+            groups["flash_attention"] += sec
+        elif any(t in low for t in ("gemm", "gemv", "nvjet", "xmma",
+                                    "cutlass")):
+            groups["gemm"] += sec
+        elif "copy" in low or "memcpy" in low:
+            groups["copy_cast"] += sec
+        else:
+            groups["other"] += sec
+    busy = sum(by_name.values())
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall),
+            "device_s_by_group": groups,
+            "device_events": n_device,
+            "command_buffer_full_s": queue_full,
+            "top": [[name[:80], sec] for name, sec in top]}
+
+
+def _argmax_share(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.argmax(dim=-1) == b.argmax(dim=-1)).float().mean())
+
+
+def _logits_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| of two (B, S, vocab) logit tensors, one sequence at a
+    time (a float64 copy of the whole prefill's logits would be 8 GB)."""
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def phase_serve(records: list) -> None:
+    """llama3-8b at full width and depth through the port's model API,
+    random weights from a seeded generator on the card."""
+    dev = torch.device("cuda")
+    cfg = get_config(SERVE_ARCH)
+    api = build_model(cfg)
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    lm = api.init(torch.Generator(device=dev).manual_seed(SERVE_SEED))
+    batch = make_batch(cfg, B, S,
+                       torch.Generator(device=dev).manual_seed(SERVE_SEED + 1))
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+
+    # prefill with flash attention: counts to zero just before, read after
+    mm_kernel.launches = cv_kernel.launches = fa_kernel.launches = 0
+    t0 = time.perf_counter()
+    logits = api.forward(lm, batch, flash=True)
+    torch.cuda.synchronize()
+    prefill_first_seconds = time.perf_counter() - t0
+    launches = {"abft_matmul": mm_kernel.launches,
+                "tile_sums": cv_kernel.launches,
+                "flash_attention": fa_kernel.launches}
+    if launches != {"abft_matmul": 0, "tile_sums": 0,
+                    "flash_attention": cfg.n_layers}:
+        raise AssertionError(f"prefill launched {launches}, expected "
+                             f"flash_attention x {cfg.n_layers} and no other")
+    if logits.shape != (B, S, cfg.vocab_size) \
+            or logits.dtype != torch.bfloat16:
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                             f"{logits.dtype}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits are not finite")
+    del logits
+    # the same prefill again, for its steady time
+    t0 = time.perf_counter()
+    logits = api.forward(lm, batch, flash=True)
+    torch.cuda.synchronize()
+    prefill_seconds = time.perf_counter() - t0
+
+    # the plain-attention forward on the same weights
+    t0 = time.perf_counter()
+    plain = api.forward(lm, batch, flash=False)
+    torch.cuda.synchronize()
+    plain_seconds = time.perf_counter() - t0
+    if fa_kernel.launches != 2 * cfg.n_layers:
+        raise AssertionError("the plain forward launched flash_attention")
+    flash_err = _logits_err(logits, plain)
+    agree = _argmax_share(logits, plain)
+    logit_absmax = float(plain.abs().max())
+    if flash_err > SERVE_ATOL or agree < SERVE_ARGMAX_FLOOR:
+        raise AssertionError(f"flash forward differs from the plain forward "
+                             f"by {flash_err} (bound {SERVE_ATOL}), argmax "
+                             f"agreement {agree} (floor {SERVE_ARGMAX_FLOOR})")
+    n = SERVE_TEACHER_TOKENS
+    plain_prefix = plain[:, :n].clone()
+    del logits, plain
+    torch.cuda.empty_cache()
+
+    # teacher-forced decode of the first prompt tokens == plain forward
+    cache, _ = api.init_cache(B, S)
+    outs = []
+    for t in range(n):
+        lg, cache = api.decode_step(lm, cache, batch["tokens"][:, t:t + 1], t)
+        outs.append(lg)
+    teacher = torch.cat(outs, dim=1)
+    teacher_err = _logits_err(teacher, plain_prefix)
+    teacher_agree = _argmax_share(teacher, plain_prefix)
+    if teacher_err > SERVE_ATOL or teacher_agree < SERVE_ARGMAX_FLOOR:
+        raise AssertionError(f"teacher-forced decode differs from the plain "
+                             f"forward by {teacher_err} (bound {SERVE_ATOL}), "
+                             f"argmax agreement {teacher_agree} "
+                             f"(floor {SERVE_ARGMAX_FLOOR})")
+    del cache, outs, teacher, plain_prefix
+
+    # greedy decode into a cache of the prompt's length
+    cache, _ = api.init_cache(B, S)
+    tok = batch["tokens"][:, :1]
+    generated = []
+    before = fa_kernel.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pos in range(SERVE_DECODE_STEPS):
+        lg, cache = api.decode_step(lm, cache, tok, pos)
+        tok = lg.argmax(dim=-1).to(torch.int32)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_seconds = time.perf_counter() - t0
+    if fa_kernel.launches != before:
+        raise AssertionError("decode launched flash_attention")
+    gen = torch.cat(generated, dim=1)
+    if gen.shape != (B, SERVE_DECODE_STEPS) or int(gen.min()) < 0 \
+            or int(gen.max()) >= cfg.vocab_size:
+        raise AssertionError(f"greedy tokens out of range: {gen.shape}")
+
+    # where the time goes: one traced prefill, four traced decode steps
+    def decode4():
+        nonlocal tok, cache
+        for pos in range(SERVE_DECODE_STEPS, SERVE_DECODE_STEPS + 4):
+            lg, cache = api.decode_step(lm, cache, tok, pos)
+            tok = lg.argmax(dim=-1).to(torch.int32)
+
+    profiles = {"decode_4_steps": _device_profile(decode4),
+                "prefill": _device_profile(
+                    lambda: api.forward(lm, batch, flash=True))}
+
+    for rec in records:
+        if rec["name"] == "flash_attention":
+            rec["launches"] = launches["flash_attention"]
+    emit({"phase": "serve", "arch": SERVE_ARCH,
+          "n_layers": cfg.n_layers, "depth_cut": None,
+          "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+          "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+          "param_gb": param_bytes / 1e9, "init_seconds": init_seconds,
+          "batch": B, "prompt": S,
+          "prefill_first_seconds": prefill_first_seconds,
+          "prefill_seconds": prefill_seconds,
+          "prefill_tokens_per_s": B * S / prefill_seconds,
+          "plain_prefill_seconds": plain_seconds,
+          "plain_prefill_tokens_per_s": B * S / plain_seconds,
+          "prefill_launches": launches,
+          "flash_vs_plain_max_abs_err": flash_err,
+          "flash_vs_plain_argmax_agree": agree,
+          "logit_absmax": logit_absmax,
+          "teacher_tokens": n, "teacher_max_abs_err": teacher_err,
+          "teacher_argmax_agree": teacher_agree, "atol": SERVE_ATOL,
+          "argmax_floor": SERVE_ARGMAX_FLOOR,
+          "decode_steps": SERVE_DECODE_STEPS, "decode_seconds": decode_seconds,
+          "decode_tokens_per_s": B * SERVE_DECODE_STEPS / decode_seconds,
+          "decode_ms_per_step": 1e3 * decode_seconds / SERVE_DECODE_STEPS,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "profile": profiles})
+    del lm, cache
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated prefix of: " + ",".join(PHASES))
+                    help="comma-separated, in this order: " + ",".join(PHASES))
     want = [p for p in ap.parse_args().phases.split(",") if p]
-    if want != list(PHASES[:len(want)]):
-        ap.error(f"--phases must be a prefix of {','.join(PHASES)}")
+    if want != [p for p in PHASES if p in want]:
+        ap.error(f"--phases must name phases of {','.join(PHASES)} in order")
 
+    # float32 products in full float32 (both are PyTorch's defaults for
+    # matmul; cuDNN's is TF32): the float32 kernel checks compare with them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_card()
     records = []
@@ -447,6 +813,8 @@ def main() -> None:
         phase_sweep(records)
     if "sharded" in want:
         phase_sharded()
+    if "serve" in want:
+        phase_serve(records)
     if want != list(PHASES):
         emit({"partial": True, "kernels": records})
         return

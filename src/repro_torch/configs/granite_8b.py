@@ -1,0 +1,11 @@
+"""granite-8b (IBM Granite Code 8B) — llama-arch dense, GQA kv=8.
+[arXiv:2405.04324; hf]"""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-8b", family="dense",
+    n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=14336, vocab_size=49152, head_dim=128,
+    rope_theta=10_000_000.0, tie_embeddings=True,
+)

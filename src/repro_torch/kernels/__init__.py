@@ -1,7 +1,9 @@
-"""Hand-written CUDA kernels for the paper's integrity math.
+"""Hand-written CUDA kernels: the paper's integrity math and the
+serving prefill's attention.
 
   abft_matmul      matrix product with fused ABFT checksum epilogue
   checksum_verify  one-pass row/column sums for checksum verification
+  flash_attention  blockwise causal GQA attention, forward only
 
 Each kernel lives in ``csrc/`` as CUDA C++ for ``sm_90a``; ``_build``
 compiles it at its first launch. Each wrapper launches its kernel for a
@@ -27,5 +29,7 @@ def launch_counts() -> Dict[str, int]:
     """This process's kernel launches so far, by kernel name."""
     from .abft_matmul import kernel as mm_kernel
     from .checksum_verify import kernel as cv_kernel
+    from .flash_attention import kernel as fa_kernel
     return {"abft_matmul": mm_kernel.launches,
-            "tile_sums": cv_kernel.launches}
+            "tile_sums": cv_kernel.launches,
+            "flash_attention": fa_kernel.launches}

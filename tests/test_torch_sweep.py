@@ -177,7 +177,8 @@ def test_sharded_sweep_equals_serial():
                                      workers=2, shard_timeout=120.0,
                                      shard_retries=0))
     assert sharded == serial == _reference_measure("mm")
-    assert port_driver.shard_launches == {"abft_matmul": 0, "tile_sums": 0}
+    assert port_driver.shard_launches == {"abft_matmul": 0, "tile_sums": 0,
+                                          "flash_attention": 0}
 
 
 @pytest.mark.parametrize("mode,reason,want", [
