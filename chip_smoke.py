@@ -10,7 +10,10 @@ Phases, each printing one JSON line:
 
   card     the card's name and power limit as nvidia-smi gives them
   build    nvcc-compiles every kernel under src/repro_torch/kernels/csrc
-           (one nvcc per source, started together)
+           (one nvcc per source, started together); per kernel its
+           registers, shared memory and spills (ptxas) and its tensor-core
+           instructions (cuobjdump -sass), failing where the bf16 flash
+           kernel has no HMMA/HGMMA or the f64 GEMM no DMMA
   kernels  each CUDA kernel against its plain PyTorch version on the card,
            at the shapes its main path gives it (the batched sweep's for
            abft_matmul and tile_sums, the llama3-8b prefill's for
@@ -45,6 +48,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -79,6 +83,12 @@ from repro_torch.scenarios import batched_engine, driver  # noqa: E402
 
 PHASES = ("card", "build", "kernels", "sweep", "sharded", "serve")
 
+# tensor-core instructions counted in each kernel's SASS, and the kernels
+# that must have them: library -> (name in the kernel's symbol, kinds)
+MMA_KINDS = ("HGMMA", "HMMA", "DMMA")
+MMA_REQUIRED = {"flash_attention": ("flash_fwd_mma_kernel", ("HGMMA", "HMMA")),
+                "abft_matmul": ("abft_mm_f64_dmma_kernel", ("DMMA",))}
+
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): the bounds
 # below are stated against these whatever the card's power limit is.
 PEAK_BYTES_PER_S = 3.35e12
@@ -104,13 +114,11 @@ SERVE_SEED = 12
 SERVE_ATOL = 0.05
 SERVE_ARGMAX_FLOOR = 0.9
 
-# flash_attention in bf16 against its plain version: both compute in
-# float32 from the same bf16 inputs and differ only where the final
-# rounding to bf16 falls on another side, by one bf16 ulp, at most 2^-7 of
-# the value. The bound is two ulps relative; the atol only covers values
-# that round near zero.
-FLASH_BF16_RTOL, FLASH_BF16_ATOL = 1.6e-2, 1e-5
-FLASH_F32_TOL = 1e-5
+# flash_attention against its plain version: bf16 two bf16 ulps of the
+# value (rtol 1.6e-2, atol 1e-5), f32 1e-5; the reasons stand beside the
+# numbers in the kernel's module, which the CPU tests read too
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = fa_kernel.BF16_RTOL, fa_kernel.BF16_ATOL
+FLASH_F32_TOL = fa_kernel.F32_TOL
 
 # the torn-crash figure's sweep axes (benchmarks/fig_torn.py, full size)
 TORN_SEED = 23
@@ -178,16 +186,92 @@ def phase_card() -> None:
     print(out.strip().splitlines()[0], flush=True)
 
 
+def _ptxas_resources(log: str) -> dict:
+    """Per kernel (mangled name): registers, static shared memory and spill
+    bytes from the ``-Xptxas -v`` log of its library."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '(\S+)'", line)
+        if hit:
+            fn = hit.group(1)
+            out[fn] = {"registers": None, "smem_static_bytes": 0,
+                       "spill_store_bytes": 0, "spill_load_bytes": 0}
+            continue
+        if fn is None:
+            continue
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        line)
+        if hit:
+            out[fn]["spill_store_bytes"] = int(hit.group(1))
+            out[fn]["spill_load_bytes"] = int(hit.group(2))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit:
+            out[fn]["registers"] = int(hit.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[fn]["smem_static_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def _kernel_label(symbol: str) -> str:
+    """``name<template arguments>`` of a mangled kernel symbol, the
+    arguments as mangled, e.g. ``flash_fwd_mma_kernel<Li128E>``."""
+    end = symbol.find("_kernel")
+    if end < 0:
+        return symbol
+    end += len("_kernel")
+    # the name is preceded by its length in decimal
+    for start in range(end - 1, 0, -1):
+        if symbol[:start].endswith(str(end - start)):
+            args = re.match(r"I(.*?)EEv", symbol[end:])
+            return symbol[start:end] + (f"<{args.group(1)}>" if args else "")
+    return symbol
+
+
+def _sass_mma_counts(path) -> dict:
+    """Per kernel (mangled name) of a built library, how many tensor-core
+    instructions of each kind ``cuobjdump -sass`` shows."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        hit = re.match(r"\s*Function : (\S+)", line)
+        if hit:
+            fn = hit.group(1)
+            out[fn] = dict.fromkeys(MMA_KINDS, 0)
+            continue
+        hit = re.search(r"\b(" + "|".join(MMA_KINDS) + r")\b", line)
+        if fn is not None and hit:
+            out[fn][hit.group(1)] += 1
+    return out
+
+
 def phase_build() -> None:
+    """Builds every library, then states for each kernel in it the
+    registers, shared memory and spills (ptxas) and the tensor-core
+    instructions (SASS); fails where a kernel that must run on the tensor
+    cores has none."""
     t0 = time.perf_counter()
     built = _build.build_all()
+    seconds = time.perf_counter() - t0
+    kernels = {}
     for name, info in built.items():
-        if info["log"].strip():
-            print(f"[nvcc {name}]\n{info['log'].strip()}", flush=True)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+        res = _ptxas_resources(info["log"])
+        for fn, counts in _sass_mma_counts(info["path"]).items():
+            kernels[_kernel_label(fn)] = {"library": name, **res.get(fn, {}),
+                                          **counts}
+    for lib, (marker, kinds) in MMA_REQUIRED.items():
+        found = {fn: k for fn, k in kernels.items()
+                 if k["library"] == lib and fn.startswith(marker + "<")}
+        if not found or any(sum(k[x] for x in kinds) == 0
+                            for k in found.values()):
+            raise AssertionError(f"{lib}: no {'/'.join(kinds)} instruction in "
+                                 f"the SASS of {marker}: {found}")
+    emit({"phase": "build", "seconds": seconds,
           "sources": {name: {"seconds": info["seconds"],
                              "built": info["built"]}
-                      for name, info in built.items()}})
+                      for name, info in built.items()},
+          "kernels": kernels})
 
 
 def _matmul_checks(dev) -> list:
@@ -197,16 +281,23 @@ def _matmul_checks(dev) -> list:
     another n or m terms, so their atol scales with k like the
     reference's tests); bfloat16 ``2e-2`` (the output rounds at 2^-8)."""
     out = []
-    for (m, k, n), dtype, rtol, atol in (
-            ((257, 129, 65), torch.float32, 1e-4, 1e-3),
-            ((100, 130, 70), torch.float32, 1e-4, 1e-3),
-            ((256, 384, 128), torch.bfloat16, 2e-2, 2e-2),
-            ((1, 512, 1), torch.float32, 1e-4, 1e-3),
-            ((1, 512, 1), torch.bfloat16, 2e-2, 2e-2),
-            ((257, 129, 65), torch.float64, 1e-12, 1e-12)):
+    for (m, k, n), dtype, rtol, atol, views in (
+            ((257, 129, 65), torch.float32, 1e-4, 1e-3, False),
+            ((100, 130, 70), torch.float32, 1e-4, 1e-3, False),
+            ((256, 384, 128), torch.bfloat16, 2e-2, 2e-2, False),
+            ((1, 512, 1), torch.float32, 1e-4, 1e-3, False),
+            ((1, 512, 1), torch.bfloat16, 2e-2, 2e-2, False),
+            ((257, 129, 65), torch.float64, 1e-12, 1e-12, False),
+            ((100, 130, 70), torch.float64, 1e-12, 1e-12, False),
+            # odd k and n as views with even row strides: the f64 kernel's
+            # 16-byte copies then end in half-filled chunks
+            ((96, 61, 63), torch.float64, 1e-12, 1e-12, True)):
         rng = np.random.default_rng(m * 7 + k * 3 + n)
-        a = torch.from_numpy(rng.normal(size=(m, k))).to(dev, dtype)
-        b = torch.from_numpy(rng.normal(size=(k, n))).to(dev, dtype)
+        pad = 1 if views else 0
+        a = torch.from_numpy(rng.normal(size=(m, k + pad))
+                             ).to(dev, dtype)[:, :k]
+        b = torch.from_numpy(rng.normal(size=(k, n + pad))
+                             ).to(dev, dtype)[:, :n]
         c, row, col = mm_ops.abft_matmul(a, b)
         acc = torch.float64 if dtype == torch.float64 else torch.float32
         cp, rowp, colp = mm_kernel.abft_matmul_plain(a, b, acc_dtype=acc)
@@ -216,6 +307,19 @@ def _matmul_checks(dev) -> list:
                 check_close(name + " col", col, colp, rtol, atol * k)]
         out.append({"case": name, "max_abs_err": max(errs),
                     "rtol": rtol, "atol": atol})
+    # gemm_batch in f64 as the sweep calls it: wave widths below, across and
+    # far above the 64-row tile at the largest operator, and a smaller one;
+    # the tolerance of the record below
+    for W, n in ((1, 4096), (193, 4096), (2048, 4096), (512, 2048)):
+        rng = np.random.default_rng(W * 13 + n)
+        Z = torch.from_numpy(rng.normal(size=(W, n))).to(dev)
+        S = torch.from_numpy(rng.normal(size=(n, n))).to(dev)
+        want, _, _ = mm_kernel.abft_matmul_plain(Z, S, acc_dtype=torch.float64)
+        name = f"gemm_batch f64 ({W},{n})@({n},{n})"
+        out.append({"case": name, "rtol": 1e-12, "atol": 1e-9,
+                    "max_abs_err": check_close(
+                        name, mm_ops.gemm_batch(Z, S, acc_dtype=torch.float64),
+                        want, 1e-12, 1e-9)})
     return out
 
 
@@ -359,7 +463,17 @@ def _flash_checks(dev) -> list:
              ((1, 100, 4, 2, 64), torch.float32, False),     # not causal
              ((2, 72, 4, 2, 32), torch.bfloat16, True),
              ((1, 130, 32, 8, 128), torch.bfloat16, True),   # llama3 heads
-             ((1, 64, 4, 4, 32), torch.bfloat16, True)]
+             ((1, 64, 4, 4, 32), torch.bfloat16, True),
+             # bf16 (tensor cores, 128-row query and 64-row key tiles): every
+             # head dim, S around the tiles, not causal
+             ((1, 1, 4, 2, 64), torch.bfloat16, True),
+             ((2, 8, 4, 2, 128), torch.bfloat16, True),
+             ((1, 127, 4, 2, 16), torch.bfloat16, True),
+             ((1, 129, 8, 2, 64), torch.bfloat16, True),
+             ((1, 200, 8, 2, 128), torch.bfloat16, True),
+             ((2, 200, 4, 1, 32), torch.bfloat16, True),
+             ((1, 200, 4, 2, 128), torch.bfloat16, False),
+             ((1, 129, 4, 4, 16), torch.bfloat16, False)]
     for (B, S, H, KV, hd), dtype, causal in cases:
         rng = np.random.default_rng(B * 1000 + S * 10 + hd)
         q, k, v = (torch.from_numpy(rng.normal(size=(B, S, n, hd))
@@ -376,17 +490,20 @@ def _flash_checks(dev) -> list:
     # q/k/v as head views of one fused projection, read in place
     rng = np.random.default_rng(5)
     B, S, H, KV, hd = 2, 96, 8, 2, 64
-    fused = torch.from_numpy(rng.normal(size=(B, S, (H + 2 * KV) * hd))
-                             ).to(dev, torch.float32)
-    q = fused[..., :H * hd].reshape(B, S, H, hd)
-    k = fused[..., H * hd:(H + KV) * hd].reshape(B, S, KV, hd)
-    v = fused[..., (H + KV) * hd:].reshape(B, S, KV, hd)
-    name = "flash_attention strided views"
-    err = check_close(name, fa_ops.flash_attention(q, k, v),
-                      fa_kernel.flash_attention_plain(q, k, v),
-                      FLASH_F32_TOL, FLASH_F32_TOL)
-    out.append({"case": name, "rtol": FLASH_F32_TOL, "atol": FLASH_F32_TOL,
-                "max_abs_err": err})
+    fused64 = rng.normal(size=(B, S, (H + 2 * KV) * hd))
+    for dtype, rtol, atol in ((torch.float32, FLASH_F32_TOL, FLASH_F32_TOL),
+                              (torch.bfloat16, FLASH_BF16_RTOL,
+                               FLASH_BF16_ATOL)):
+        fused = torch.from_numpy(fused64).to(dev, dtype)
+        q = fused[..., :H * hd].reshape(B, S, H, hd)
+        k = fused[..., H * hd:(H + KV) * hd].reshape(B, S, KV, hd)
+        v = fused[..., (H + KV) * hd:].reshape(B, S, KV, hd)
+        name = f"flash_attention strided views/{str(dtype)[6:]}"
+        err = check_close(name, fa_ops.flash_attention(q, k, v),
+                          fa_kernel.flash_attention_plain(q, k, v),
+                          rtol, atol)
+        out.append({"case": name, "rtol": rtol, "atol": atol,
+                    "max_abs_err": err})
     return out
 
 
@@ -616,7 +733,7 @@ def _device_profile(fn) -> dict:
         n_device += 1
         by_name[name] = by_name.get(name, 0.0) + sec
         low = name.lower()
-        if "flash_fwd_kernel" in low:
+        if "flash_fwd" in low:
             groups["flash_attention"] += sec
         elif any(t in low for t in ("gemm", "gemv", "nvjet", "xmma",
                                     "cutlass")):

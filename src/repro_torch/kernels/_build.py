@@ -9,7 +9,8 @@ the first launch on a CUDA tensor calls :func:`load`.
 
 The build directory is ``build/repro_torch/`` beside ``src/``. Every
 compile runs with ``-Xptxas -v``, so the build log states each kernel's registers, shared
-memory and spills.
+memory and spills; the log is kept beside the library (``.log``) and
+returned again when the library is reused.
 """
 
 from __future__ import annotations
@@ -64,6 +65,10 @@ def _target(name: str) -> Path:
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _log_path(target: Path) -> Path:
+    return target.with_suffix(".log")
+
+
 def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, dict]:
     """Compile every named source (default: all of ``csrc``) that has no
     up-to-date library yet, one ``nvcc`` process each, all started
@@ -75,7 +80,9 @@ def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, dict]:
     for name in names:
         target = _target(name)
         if target.exists():
-            out[name] = {"path": target, "seconds": 0.0, "log": "",
+            log = _log_path(target)
+            out[name] = {"path": target, "seconds": 0.0,
+                         "log": log.read_text() if log.exists() else "",
                          "built": False}
             continue
         target.parent.mkdir(parents=True, exist_ok=True)
@@ -95,6 +102,7 @@ def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, dict]:
             tmp.unlink(missing_ok=True)
             errors.append(f"{' '.join(cmd)}\nexit code {proc.returncode}\n{log}")
             continue
+        _log_path(target).write_text(log)
         os.replace(tmp, target)
         out[name] = {"path": target, "seconds": seconds, "log": log,
                      "built": True}

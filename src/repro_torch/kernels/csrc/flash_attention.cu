@@ -10,44 +10,65 @@
 // scale = 1/sqrt(hd) multiplies the f32 logits after the dot; the causal
 // mask compares absolute positions; a masked logit is NEG_INF = -1e30;
 // p = masked ? 0 : exp(logit - m_new), so a fully masked tile adds exactly
-// 0; the result is acc / max(l, 1e-30), cast to q's type.
+// 0; l sums the unrounded f32 p; the result is acc / max(l, 1e-30), cast
+// to q's type.
 //
 // What bounds it on this card: operations. At the serving prefill's
 // shape, q (2, 4096, 32, 128) and k/v (2, 4096, 8, 128) in bf16, causal
 // attention needs 2 * 2 * S^2 * hd * B * H / 2 = 2.75e11 flops against
 // 0.17 GB of bytes: 0.28 ms at the bf16 tensor-core peak (989 TFLOP/s),
-// 4.1 ms at the f32 rate (67 TFLOP/s) this kernel computes at, 0.05 ms of
-// memory traffic.
+// 0.05 ms of memory traffic.
 //
-// What the design does about that: one block owns one (batch, query head,
-// 64-row query tile) and loops over 64-row key tiles itself (blocks run
-// in no order, so nothing is carried between them); the state stays in
-// registers. Tiles are staged in shared memory as f32; 256 threads each
-// keep a 4 x 4 block of scores and a 4 x (hd/16) block of the output, fed
-// by 16-byte shared-memory loads, so every value loaded feeds four FMAs.
-// The inputs are read through their strides in (B, S, heads, hd) layout
+// Which dtype takes which kernel (chosen at build time by the type alone;
+// nothing falls back at run time):
+//
+// * bf16 -> flash_fwd_mma_kernel, on the tensor cores. One block of 8
+//   warps owns one (batch, query head, 128-row query tile); warp w owns
+//   rows 16w..16w+15 and loops over 64-row key tiles. Q, K and V stay bf16
+//   in shared memory, each 16-byte chunk of a row XOR-swizzled by the row
+//   so that ldmatrix reads 8 rows without bank conflicts. K and V tiles
+//   come through a 2-stage cp.async ring: tile i+1 is in flight while tile
+//   i computes (and two blocks share an SM, 96 KB each at hd = 128).
+//   q k^T is mma.sync.m16n8k16 (bf16 operands, f32 accumulator); bf16 x
+//   bf16 products are exact in f32, so the scores differ from an f32 dot
+//   only by summation order. The online softmax runs on the accumulator
+//   fragments in registers (row max and sum over the 4 lanes of a quad).
+//   P.V is mma.sync too, with P taken from the score registers as the A
+//   operand and V read transposed by ldmatrix.trans. P is split in two,
+//   hi = bf16(p) and lo = bf16(p - hi), and both products go into the same
+//   f32 accumulator: p is then carried to about 16 bits instead of 8. A
+//   single bf16 P would err by up to 62 x the check this kernel is held
+//   to (two bf16 ulps of the f32-P result); the split costs 1.5 x the MMA
+//   work of a single P and keeps the function that of the f32-P kernel.
+//   A warp whose rows all lie above a key tile skips it.
+// * f32 -> flash_fwd_kernel, every product and sum in full f32 FMA on the
+//   CUDA cores (no TF32, which would miss the f32 check of 1e-5): tiles
+//   staged in shared memory as f32, 256 threads each keeping a 4 x 4 block
+//   of scores and a 4 x (hd/16) block of the output. It is off the serving
+//   path (the prefill runs bf16).
+//
+// Both read the inputs through their strides in (B, S, heads, hd) layout
 // (unit stride on hd): no transposed copies. Query head h reads key/value
 // head h / (H / KV), so the GQA repeat is never materialised. The ragged
-// edge (S not a multiple of 64) is masked here, not padded by the caller.
-// Key tiles wholly above the diagonal are skipped: such a tile would leave
-// m, l and acc unchanged (alpha = exp(0) = 1, every p = 0), so skipping it
-// is exact, not an approximation. Query tiles are issued longest-first to
-// even out the causal triangle.
+// edge (S not a multiple of the tile) is masked here, not padded by the
+// caller. Key tiles wholly above the diagonal are skipped: such a tile
+// would leave m, l and acc unchanged (alpha = exp(0) = 1, every p = 0), so
+// skipping it is exact. The longest query tiles are issued first to even
+// out the causal triangle.
 //
-// Precision: every product and sum in full f32 FMA, no TF32, for f32 and
-// bf16 inputs alike (bf16 values are widened on load), so bf16 outputs
-// differ from the reference only by the final rounding and summation order.
-//
-// What this simple design leaves on the table: the tensor cores (mma.sync
-// or wgmma with bf16 operands would be 15x the f32 FMA rate), TMA and
-// cp.async double buffering (tile loads are not overlapped with compute),
-// and occupancy (about 116 KB of shared memory at hd = 128 keeps one block
-// of 8 warps on each SM).
+// What the bf16 design leaves on the table: wgmma (warpgroup MMA from
+// shared memory, the only route to the full tensor-core rate), TMA loads
+// from a producer warp, and a persistent schedule.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32: CUDA-core FMA
+// ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;            // query rows per block
 constexpr int BK = 64;            // key rows per tile
@@ -63,15 +84,9 @@ static_assert(RQ == 4 && RK == 4, "the score block of a thread is 4 x 4");
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-    return __float2bfloat16(v);
-}
 
 template <int HD>
 constexpr int smem_bytes() {
@@ -284,6 +299,326 @@ int launch_hd(const void* q, const void* k, const void* v, void* o,
     return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (mma.sync), cp.async ring
+// ---------------------------------------------------------------------------
+
+namespace mma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BQ = 128;           // query rows per block
+constexpr int BKV = 64;           // key rows per tile
+constexpr int NW = BQ / 16;       // warps; warp w owns query rows 16w..16w+15
+constexpr int NT = NW * 32;
+constexpr int STAGES = 2;         // K/V ring depth
+constexpr int NS = BKV / 8;       // n8 score tiles of a warp's 16 rows
+
+template <int HD>
+constexpr int smem_bytes() {
+    return (BQ + 2 * STAGES * BKV) * HD * static_cast<int>(sizeof(bf16));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// element offset of 16-byte chunk c of row r in a (rows, HD) bf16 tile:
+// the chunk index is XOR-ed with the row, so the 8 rows that one ldmatrix
+// phase reads at one chunk column fall in 8 different bank groups
+template <int HD>
+__device__ __forceinline__ int at(int r, int c) {
+    constexpr int CH = HD / 8;
+    constexpr int W = CH < 8 ? CH : 8;
+    return r * HD + ((c ^ (r & (W - 1))) * 8);
+}
+
+// rows [r0, r0 + ROWS) of one head's (S, HD) slice, row stride rs, into a
+// swizzled (ROWS, HD) tile by 16-byte cp.async; rows at or beyond S are
+// zero-filled (source size 0)
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src,
+                                          long long rs, int r0, int S, int tid) {
+    constexpr int CH = HD / 8;
+    constexpr int N = ROWS * CH;
+#pragma unroll
+    for (int i = 0; i < (N + NT - 1) / NT; ++i) {
+        const int e = tid + i * NT;
+        if (N % NT == 0 || e < N) {
+            const int r = e / CH, c = e % CH;
+            const int s = r0 + r;
+            const bf16* g = src + static_cast<long long>(s < S ? s : S - 1) * rs + c * 8;
+            asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                         :: "r"(smem_u32(dst + at<HD>(r, c))), "l"(g), "r"(s < S ? 16 : 0));
+        }
+    }
+}
+
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void wait_groups() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                 "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                 : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// p (two f32) as hi = bf16(p) and lo = bf16(p - hi), each a bf16 pair with
+// the first value in the low half; p - hi is exact in f32
+__device__ __forceinline__ void split(float x, float y, uint32_t& hi, uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// Grid (B * H, query tiles), longest query tile first; 8 warps. The
+// accumulator of a warp's 16 rows is 16 x HD f32 in registers (HD/2 a
+// thread), its score tile 16 x 64 (32 a thread): the launch bound of two
+// blocks an SM leaves 128 registers a thread.
+template <int HD>
+__global__ void __launch_bounds__(NT, 2)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     int S, int H, int groups, int causal, float scale_log2,
+                     long long qsb, long long qss, long long qsh,
+                     long long ksb, long long kss, long long ksh,
+                     long long vsb, long long vss, long long vsh)
+{
+    constexpr int KS = HD / 16;   // k16 steps of q.k
+    constexpr int NO = HD / 8;    // n8 tiles of the output
+    static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
+
+    extern __shared__ __align__(128) unsigned char smem_raw[];
+    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // (BQ, HD)
+    bf16* Ks = Qs + BQ * HD;                          // STAGES x (BKV, HD)
+    bf16* Vs = Ks + STAGES * BKV * HD;                // STAGES x (BKV, HD)
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int bh = blockIdx.x;
+    const int b = bh / H, h = bh % H;
+    const int kvh = h / groups;
+    const int qt = static_cast<int>(gridDim.y) - 1 - static_cast<int>(blockIdx.y);
+    const int q0 = qt * BQ;
+    const int wq0 = q0 + warp * 16;         // first query row of this warp
+    const int row_a = wq0 + g, row_b = row_a + 8;
+
+    const bf16* qb = q + b * qsb + h * qsh;
+    const bf16* kb = k + b * ksb + kvh * ksh;
+    const bf16* vb = v + b * vsb + kvh * vsh;
+
+    int n_kt = (S + BKV - 1) / BKV;
+    if (causal) n_kt = min(n_kt, (q0 + BQ - 1) / BKV + 1);   // exact skip
+
+    load_tile<HD, BQ>(Qs, qb, qss, q0, S, tid);
+    load_tile<HD, BKV>(Ks, kb, kss, 0, S, tid);
+    load_tile<HD, BKV>(Vs, vb, vss, 0, S, tid);
+    commit();
+
+    float acc[NO][4];
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    // rows row_a (i = 0) and row_b (i = 1); m in units of log2
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+    // ldmatrix lane addresses: Q's A operand (row lane % 16, chunk lane / 16),
+    // K's B operand (key (lane / 16) * 8 + lane % 8, chunk (lane / 8) % 2),
+    // V's B operand through .trans (key ((lane / 8) % 2) * 8 + lane % 8,
+    // chunk lane / 16)
+    const int a_row = warp * 16 + (lane & 15), a_ch = lane >> 4;
+    const int k_row = ((lane >> 4) << 3) + (lane & 7), k_ch = (lane >> 3) & 1;
+    const int v_row = (((lane >> 3) & 1) << 3) + (lane & 7), v_ch = lane >> 4;
+
+    for (int kt = 0; kt < n_kt; ++kt) {
+        if (kt + 1 < n_kt) {
+            const int st = (kt + 1) % STAGES;
+            load_tile<HD, BKV>(Ks + st * BKV * HD, kb, kss, (kt + 1) * BKV, S, tid);
+            load_tile<HD, BKV>(Vs + st * BKV * HD, vb, vss, (kt + 1) * BKV, S, tid);
+        }
+        commit();
+        wait_groups<1>();         // tile kt (and Q) have landed
+        __syncthreads();
+
+        const int k0 = kt * BKV;
+        const bf16* Kt = Ks + (kt % STAGES) * BKV * HD;
+        const bf16* Vt = Vs + (kt % STAGES) * BKV * HD;
+        // a warp whose rows all precede the tile's first key skips it (exact)
+        if (!causal || k0 <= wq0 + 15) {
+            float s[NS][4];
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk) {
+                uint32_t a[4];
+                ldsm_x4(a, smem_u32(Qs + at<HD>(a_row, 2 * kk + a_ch)));
+#pragma unroll
+                for (int jp = 0; jp < NS / 2; ++jp) {
+                    uint32_t bq[4];
+                    ldsm_x4(bq, smem_u32(Kt + at<HD>(jp * 16 + k_row, 2 * kk + k_ch)));
+                    mma_16816(s[2 * jp], a, bq[0], bq[1]);
+                    mma_16816(s[2 * jp + 1], a, bq[2], bq[3]);
+                }
+            }
+
+            // scale after the dot (in units of log2), mask, row max
+            const bool edge = (causal && k0 + BKV - 1 > wq0) || k0 + BKV > S;
+            float mx[2] = {m[0], m[1]};
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    float x = s[j][e] * scale_log2;
+                    if (edge) {
+                        const int kpos = k0 + j * 8 + 2 * t + (e & 1);
+                        const int qpos = e < 2 ? row_a : row_b;
+                        if (kpos >= S || (causal && kpos > qpos)) x = NEG_INF;
+                    }
+                    s[j][e] = x;
+                    mx[e >> 1] = fmaxf(mx[e >> 1], x);
+                }
+            float alpha[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+                alpha[i] = exp2f(m[i] - mx[i]);
+                m[i] = mx[i];
+            }
+            // p = masked ? 0 : exp(logit - m_new); l takes the unrounded p
+            float rs[2] = {0.f, 0.f};
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    bool ok = true;
+                    if (edge) {
+                        const int kpos = k0 + j * 8 + 2 * t + (e & 1);
+                        const int qpos = e < 2 ? row_a : row_b;
+                        ok = kpos < S && (!causal || kpos <= qpos);
+                    }
+                    const float p = ok ? exp2f(s[j][e] - mx[e >> 1]) : 0.f;
+                    s[j][e] = p;
+                    rs[e >> 1] += p;
+                }
+#pragma unroll
+            for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+            for (int j = 0; j < NO; ++j) {
+                acc[j][0] *= alpha[0];
+                acc[j][1] *= alpha[0];
+                acc[j][2] *= alpha[1];
+                acc[j][3] *= alpha[1];
+            }
+
+            // acc += P V over 16-key chunks, P = hi + lo as the A operand
+#pragma unroll
+            for (int kc = 0; kc < BKV / 16; ++kc) {
+                uint32_t ph[4], pl[4];
+                split(s[2 * kc][0], s[2 * kc][1], ph[0], pl[0]);
+                split(s[2 * kc][2], s[2 * kc][3], ph[1], pl[1]);
+                split(s[2 * kc + 1][0], s[2 * kc + 1][1], ph[2], pl[2]);
+                split(s[2 * kc + 1][2], s[2 * kc + 1][3], ph[3], pl[3]);
+#pragma unroll
+                for (int np = 0; np < HD / 16; ++np) {
+                    uint32_t bv[4];
+                    ldsm_x4_trans(bv, smem_u32(Vt + at<HD>(kc * 16 + v_row, 2 * np + v_ch)));
+                    mma_16816(acc[2 * np], ph, bv[0], bv[1]);
+                    mma_16816(acc[2 * np], pl, bv[0], bv[1]);
+                    mma_16816(acc[2 * np + 1], ph, bv[2], bv[3]);
+                    mma_16816(acc[2 * np + 1], pl, bv[2], bv[3]);
+                }
+            }
+        }
+        __syncthreads();          // stage kt % STAGES is free for tile kt + 2
+    }
+    wait_groups<0>();
+
+    // the 4 lanes of a quad hold parts of the same two rows
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    }
+    // o (B, S, H, HD), contiguous
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int r = i == 0 ? row_a : row_b;
+        if (r >= S) continue;
+        const float denom = fmaxf(l[i], 1e-30f);
+        bf16* orow = o + ((static_cast<long long>(b) * S + r) * H + h) * HD;
+#pragma unroll
+        for (int j = 0; j < NO; ++j) {
+            const __nv_bfloat162 val = __floats2bfloat162_rn(acc[j][2 * i] / denom,
+                                                             acc[j][2 * i + 1] / denom);
+            *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * t) = val;
+        }
+    }
+}
+
+}  // namespace mma
+
+template <int HD>
+int launch_mma_hd(const void* q, const void* k, const void* v, void* o,
+                  int B, int S, int H, int KV, int causal, float scale,
+                  long long qsb, long long qss, long long qsh,
+                  long long ksb, long long kss, long long ksh,
+                  long long vsb, long long vss, long long vsh, void* stream)
+{
+    constexpr int smem = mma::smem_bytes<HD>();
+    const cudaError_t err = cudaFuncSetAttribute(
+        mma::flash_fwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(B * H, (S + mma::BQ - 1) / mma::BQ);
+    // scores are scaled into units of log2 so the kernel exponentiates with
+    // exp2: exp(x * scale - m) == exp2(x * scale * log2(e) - m * log2(e))
+    const float scale_log2 = scale * 1.4426950408889634f;
+    mma::flash_fwd_mma_kernel<HD><<<grid, mma::NT, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+        S, H, H / KV, causal, scale_log2,
+        qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// the kernel of each input type: f32 -> FMA (launch_hd), bf16 -> tensor
+// cores (launch_mma_hd)
+template <typename T, int HD>
+int launch_type_hd(const void* q, const void* k, const void* v, void* o,
+                   int B, int S, int H, int KV, int causal, float scale,
+                   long long qsb, long long qss, long long qsh,
+                   long long ksb, long long kss, long long ksh,
+                   long long vsb, long long vss, long long vsh, void* stream)
+{
+    if constexpr (sizeof(T) == 2)
+        return launch_mma_hd<HD>(q, k, v, o, B, S, H, KV, causal, scale,
+                                 qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, stream);
+    else
+        return launch_hd<T, HD>(q, k, v, o, B, S, H, KV, causal, scale,
+                                qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, stream);
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o,
            int B, int S, int H, int KV, int hd, int causal, float scale,
@@ -294,8 +629,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
     if (B <= 0 || S <= 0 || H <= 0) return 0;
     if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
 #define FLASH_HD(N) \
-    case N: return launch_hd<T, N>(q, k, v, o, B, S, H, KV, causal, scale, \
-                                   qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, stream);
+    case N: return launch_type_hd<T, N>(q, k, v, o, B, S, H, KV, causal, scale, \
+                                        qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, stream);
     switch (hd) {
         FLASH_HD(16)
         FLASH_HD(32)
@@ -311,7 +646,9 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // One entry point per input type. q is (B, S, H, hd) and k, v are
 // (B, S, KV, hd), each with element strides (batch, seq, head) and unit
 // stride on hd; o is (B, S, H, hd), contiguous, in the input type.
-// hd is 16, 32, 64 or 128. Returns cudaGetLastError() of the launch.
+// hd is 16, 32, 64 or 128. The bf16 kernel copies 16-byte chunks: its
+// inputs must be 16-byte aligned with strides that are multiples of 8.
+// Returns cudaGetLastError() of the launch.
 extern "C" {
 
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,

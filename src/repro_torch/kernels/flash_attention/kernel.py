@@ -23,11 +23,21 @@ import torch
 from .. import _build
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain", "launches",
-           "HEAD_DIMS", "NEG_INF"]
+           "HEAD_DIMS", "NEG_INF", "BF16_RTOL", "BF16_ATOL", "F32_TOL"]
 
 launches = 0
 
 NEG_INF = -1e30
+
+# What the kernel is held to against flash_attention_plain on the same
+# inputs. bf16: both compute in float32 from the same bf16 inputs (the
+# kernel carries p to about 16 bits as bf16 hi + lo) and differ where the
+# final rounding to bf16 falls on another side, by one bf16 ulp, at most
+# 2^-7 of the value; the bound is two ulps relative, the atol only covers
+# values that round near zero. f32: summation order of a float32 softmax,
+# both sides full float32, no TF32.
+BF16_RTOL, BF16_ATOL = 1.6e-2, 1e-5
+F32_TOL = 1e-5
 
 # head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128)
@@ -35,8 +45,10 @@ HEAD_DIMS = (16, 32, 64, 128)
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 
-# CUDA's limit on the second grid dimension (batch * query heads)
+# CUDA's limit on the second grid dimension: batch * query heads for the
+# float32 kernel, query tiles of 128 rows for the bfloat16 one
 _GRID_Y_MAX = 65535
+_BF16_QUERY_TILE = 128
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -70,11 +82,24 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"query heads {H} are not a multiple of kv heads {KV}")
 
 
+def _readable(t: torch.Tensor) -> bool:
+    """Whether the kernel reads ``t`` in place: unit stride on hd, and for
+    bfloat16 (copied in 16-byte chunks) a 16-byte aligned start and strides
+    that are multiples of 8 elements."""
+    if t.stride(3) != 1:
+        return False
+    if t.dtype != torch.bfloat16:
+        return True
+    return t.data_ptr() % 16 == 0 and all(t.stride(d) % 8 == 0
+                                          for d in range(3))
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
     """Launch the kernel on CUDA tensors q ``(B, S, H, hd)``, k/v
     ``(B, S, KV, hd)`` of one dtype (float32 or bfloat16), any strides
-    (a copy is made only where hd's stride is not 1). Returns
+    (a copy is made only where the kernel cannot read a tensor in place,
+    see :func:`_readable`). Returns
     ``(B, S, H, hd)`` contiguous in q's dtype. Raises for mismatched
     shapes, mixed or other dtypes, a head dim the kernel lacks, and a
     tensor that is not on the card or devices that differ."""
@@ -92,9 +117,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             and q.device == k.device == v.device):
         raise ValueError("flash_attention_cuda needs q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
-    if B * H > _GRID_Y_MAX:
-        raise ValueError(f"batch * heads = {B * H} exceeds the kernel's grid")
-    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    grid_y = (B * H if q.dtype == torch.float32
+              else -(-S // _BF16_QUERY_TILE))
+    if grid_y > _GRID_Y_MAX:
+        raise ValueError(f"q {(B, S, H, hd)} exceeds the kernel's grid")
+    q, k, v = (t if _readable(t) else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
     o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if B == 0 or S == 0 or H == 0:
         return o

@@ -21,6 +21,7 @@ from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.flash_attention.kernel import BF16_ATOL, BF16_RTOL
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 # the reference's four shapes (tests/test_kernels.py), a ragged S and the
@@ -153,3 +154,73 @@ def test_kernel_wrapper_raises_on_what_it_does_not_take():
         fa.flash_attention(q, torch.zeros(1, 8, 2, 32),
                            torch.zeros(1, 8, 2, 32))
     assert launch_counts()["flash_attention"] == 0
+
+
+# The bf16 kernel's arithmetic (csrc/flash_attention.cu, the mma route),
+# emulated in plain PyTorch: the card's check holds the kernel to two bf16
+# ulps of the f32-P result (BF16_RTOL / BF16_ATOL), and these tests show
+# that P split into bf16 hi + lo meets that bound where one bf16 P does not.
+KEY_TILE = 64       # mma::BKV, the kernel's key tile
+
+
+def _blockwise_bf16(q, k, v, *, split: bool) -> torch.Tensor:
+    """Causal online softmax over KEY_TILE-key tiles in f32: scale after
+    the dot, masked logits NEG_INF and masked p exactly 0, l from the
+    unrounded p, P.V from bf16 P (hi, plus lo = bf16(p - hi) when
+    ``split``) with f32 sums, out = acc / max(l, 1e-30) in bf16. Query rows
+    that precede a tile skip it, as the kernel's warps do."""
+    B, S, H, hd = q.shape
+    g = H // k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)
+    kf, vf = (t.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+              for t in (k, v))
+    scale = 1.0 / (hd ** 0.5)
+    m = torch.full((B, H, S, 1), fa_kernel.NEG_INF)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, hd))
+    for k0 in range(0, S, KEY_TILE):
+        rows = slice(k0, S)
+        kt, vt = kf[:, :, k0:k0 + KEY_TILE], vf[:, :, k0:k0 + KEY_TILE]
+        s = qf[:, :, rows] @ kt.transpose(-1, -2) * scale
+        ok = (torch.arange(k0, k0 + kt.shape[2])[None, :]
+              <= torch.arange(k0, S)[:, None])
+        s = s.masked_fill(~ok, fa_kernel.NEG_INF)
+        m_new = torch.maximum(m[:, :, rows], s.amax(-1, keepdim=True))
+        p = torch.where(ok, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m[:, :, rows] - m_new)
+        l[:, :, rows] = l[:, :, rows] * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        pv = hi @ vt
+        if split:
+            pv = pv + (p - hi).to(torch.bfloat16).float() @ vt
+        acc[:, :, rows] = acc[:, :, rows] * alpha + pv
+        m[:, :, rows] = m_new
+    out = acc / l.clamp_min(1e-30)
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def _out_of_bound(got: torch.Tensor, want: torch.Tensor) -> int:
+    g, w = got.double(), want.double()
+    return int(((g - w).abs() > BF16_ATOL + BF16_RTOL * w.abs()).sum())
+
+
+def _bf16_inputs(S, hd, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(1, S, heads, hd))
+                             ).to(torch.bfloat16) for heads in (2, 1, 1)]
+
+
+@pytest.mark.parametrize("S,hd", [(4096, 128), (1000, 64)])
+def test_split_p_meets_the_cards_bf16_bound(S, hd):
+    q, k, v = _bf16_inputs(S, hd, S + hd)
+    want = fa_kernel.flash_attention_plain(q, k, v)
+    got = _blockwise_bf16(q, k, v, split=True)
+    assert _out_of_bound(got, want) == 0
+
+
+def test_single_bf16_p_misses_the_cards_bf16_bound():
+    """Why the kernel splits P: rounded once to bf16 before P.V, the same
+    prefill-length inputs leave the bound at many elements."""
+    q, k, v = _bf16_inputs(4096, 128, 4096 + 128)
+    want = fa_kernel.flash_attention_plain(q, k, v)
+    assert _out_of_bound(_blockwise_bf16(q, k, v, split=False), want) > 1000
