@@ -13,7 +13,7 @@ Phases, each printing one JSON line:
            (one nvcc per source, started together); per kernel its
            registers, shared memory and spills (ptxas) and its tensor-core
            instructions (cuobjdump -sass), failing where the bf16 flash
-           kernel has no HMMA/HGMMA or the f64 GEMM no DMMA
+           kernel has no HGMMA (wgmma) or the f64 GEMM no DMMA
   kernels  each CUDA kernel against its plain PyTorch version on the card,
            at the shapes its main path gives it (the batched sweep's for
            abft_matmul and tile_sums, the llama3-8b prefill's for
@@ -86,7 +86,7 @@ PHASES = ("card", "build", "kernels", "sweep", "sharded", "serve")
 # tensor-core instructions counted in each kernel's SASS, and the kernels
 # that must have them: library -> (name in the kernel's symbol, kinds)
 MMA_KINDS = ("HGMMA", "HMMA", "DMMA")
-MMA_REQUIRED = {"flash_attention": ("flash_fwd_mma_kernel", ("HGMMA", "HMMA")),
+MMA_REQUIRED = {"flash_attention": ("flash_fwd_wgmma_kernel", ("HGMMA",)),
                 "abft_matmul": ("abft_mm_f64_dmma_kernel", ("DMMA",))}
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): the bounds

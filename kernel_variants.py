@@ -3,9 +3,8 @@
 CUDA card, beside the shipped design, at the shapes of their main paths:
 
 * flash_attention (bf16, the llama3-8b prefill: q (2,4096,32,128), k/v
-  (2,4096,8,128), causal): query tiles of 64 or 128 rows, key tiles of
-  32, 64 or 128, two or three stages in the K/V ring, one, two or four
-  blocks an SM, and P rounded once to bf16 instead of split into hi + lo;
+  (2,4096,8,128), causal): key tiles of 64 or 128 rows, one or two tiles
+  loaded ahead, and P rounded once to bf16 instead of split into hi + lo;
 * abft_matmul (f64, ``gemm_batch`` (256,4096)@(4096,4096)): the DMMA
   shape, slab depth and ring depth.
 
@@ -42,30 +41,21 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E40
 
 OUT = _build.build_dir().parent / "variants"
 
-_FA_BQ = "constexpr int BQ = 128;           // query rows per block"
-_FA_BKV = "constexpr int BKV = 64;           // key rows per tile"
-_FA_STAGES = "constexpr int STAGES = 2;         // K/V ring depth"
-_FA_BOUNDS = "__launch_bounds__(NT, 2)\nflash_fwd_mma_kernel"
-_FA_LO = ("                    mma_16816(acc[2 * np], pl, bv[0], bv[1]);\n",
-          "                    mma_16816(acc[2 * np + 1], pl, bv[2], bv[3]);\n")
+_FA_BKV = "constexpr int BKV = 128;          // key rows per tile"
+_FA_AHEAD = ("constexpr int AHEAD = 1;          "
+             "// key tiles in flight ahead of the one computed")
+_FA_LO = "            pv<HD>(acc, pl[kc], dv);\n"
 _MM_BK = "constexpr int BK = 16;                  // depth of one slab"
 _MM_STAGES = "constexpr int STAGES = 4;               // slabs in the ring"
-_MM_WARP = "constexpr int WM = 32, WN = 32;"
 _MM_SHAPE = "constexpr int MMA_M = 16, MMA_K = 4;"
 
 FLASH = {
-    "shipped: 64-key tiles, 2 stages, 2 blocks/SM": [],
-    "1 block/SM": [(_FA_BOUNDS, _FA_BOUNDS.replace("2)", "1)"))],
-    "3 stages, 1 block/SM": [(_FA_STAGES, _FA_STAGES.replace("2;", "3;")),
-                             (_FA_BOUNDS, _FA_BOUNDS.replace("2)", "1)"))],
-    "128-key tiles, 1 block/SM": [(_FA_BKV, _FA_BKV.replace("64;", "128;")),
-                                  (_FA_BOUNDS, _FA_BOUNDS.replace("2)", "1)"))],
-    "64-row query tiles, 2 blocks/SM": [(_FA_BQ, _FA_BQ.replace("128;", "64;"))],
-    "64-row query tiles, 32-key tiles, 4 blocks/SM": [
-        (_FA_BQ, _FA_BQ.replace("128;", "64;")),
-        (_FA_BKV, _FA_BKV.replace("64;", "32;")),
-        (_FA_BOUNDS, _FA_BOUNDS.replace("2)", "4)"))],
-    "single bf16 P (not shipped)": [(line, "") for line in _FA_LO],
+    "shipped: 128-key tiles, 1 tile ahead (ring of 3)": [],
+    "64-key tiles, 1 tile ahead": [(_FA_BKV, _FA_BKV.replace("128;", "64;"))],
+    "64-key tiles, 2 tiles ahead (ring of 4)": [
+        (_FA_BKV, _FA_BKV.replace("128;", "64;")),
+        (_FA_AHEAD, _FA_AHEAD.replace("1;", "2;"))],
+    "single bf16 P (not shipped)": [(_FA_LO, "")],
 }
 MATMUL = {
     "shipped: m16n8k4, 16-deep slabs, 4 stages, 4 warps of 32x32": [],
@@ -156,7 +146,7 @@ def main() -> None:
                      q, k, v), 20),
                  "max_abs_err": cs.max_abs_err(got, want),
                  "out_of_bound": int(bad.sum()), "elements": got.numel(),
-                 **_resources(log, "flash_fwd_mma_kernel")})
+                 **_resources(log, "flash_fwd_wgmma_kernel")})
     del q, k, v, want, got
 
     rng = np.random.default_rng(4096)

@@ -15,11 +15,12 @@
 //
 // * f64 -> abft_mm_f64_dmma_kernel, on the FP64 tensor cores (DMMA;
 //   wgmma has no f64 form): mma.sync.m16n8k4 f64, one of the shapes that
-//   sm_90 added. The m8n8k4 shape of sm_80 runs at about half the rate
-//   here (0.325 against 0.207 ms at the sweep's shape, kernel_variants.py);
-//   m16n8k8 and m16n8k16 were no faster. A block of 4 warps owns a 64 x 64
-//   tile of C; each warp a 32 x 32 quarter, held as 2 x 4 fragments of
-//   16 x 8 (32 doubles a thread). The operands come through a 4-stage
+//   sm_90 added. On an H100 the m8n8k4 shape of sm_80 ran at about half
+//   the rate (0.32 against 0.21 ms at the sweep's shape, kernel_variants.py)
+//   and m16n8k8 and m16n8k16 were no faster; MMA_M / MMA_K select the shape
+//   at build time so that script can time the others. A block of 4 warps
+//   owns a 64 x 64 tile of C; each warp a 32 x 32 quarter, held as 2 x 4
+//   fragments of 16 x 8 (32 doubles a thread). The operands come through a 4-stage
 //   cp.async ring of 16-deep slabs, so three slabs are in flight while one
 //   computes; rows of the shared-memory slabs are padded so that every
 //   fragment load is free of bank conflicts. 16-byte copies where the

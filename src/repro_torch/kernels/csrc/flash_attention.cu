@@ -22,25 +22,26 @@
 // Which dtype takes which kernel (chosen at build time by the type alone;
 // nothing falls back at run time):
 //
-// * bf16 -> flash_fwd_mma_kernel, on the tensor cores. One block of 8
-//   warps owns one (batch, query head, 128-row query tile); warp w owns
-//   rows 16w..16w+15 and loops over 64-row key tiles. Q, K and V stay bf16
-//   in shared memory, each 16-byte chunk of a row XOR-swizzled by the row
-//   so that ldmatrix reads 8 rows without bank conflicts. K and V tiles
-//   come through a 2-stage cp.async ring: tile i+1 is in flight while tile
-//   i computes (and two blocks share an SM, 96 KB each at hd = 128).
-//   q k^T is mma.sync.m16n8k16 (bf16 operands, f32 accumulator); bf16 x
-//   bf16 products are exact in f32, so the scores differ from an f32 dot
-//   only by summation order. The online softmax runs on the accumulator
-//   fragments in registers (row max and sum over the 4 lanes of a quad).
-//   P.V is mma.sync too, with P taken from the score registers as the A
-//   operand and V read transposed by ldmatrix.trans. P is split in two,
-//   hi = bf16(p) and lo = bf16(p - hi), and both products go into the same
-//   f32 accumulator: p is then carried to about 16 bits instead of 8. A
-//   single bf16 P would err by up to 62 x the check this kernel is held
-//   to (two bf16 ulps of the f32-P result); the split costs 1.5 x the MMA
-//   work of a single P and keeps the function that of the f32-P kernel.
-//   A warp whose rows all lie above a key tile skips it.
+// * bf16 -> flash_fwd_wgmma_kernel, on the tensor cores through wgmma. One
+//   block of two warpgroups owns one (batch, query head, 128-row query
+//   tile); each warpgroup owns 64 rows and loops over 128-row key tiles. Q,
+//   K and V stay bf16 in shared memory in the swizzled layout the wgmma
+//   matrix descriptors name (128-byte swizzle at hd >= 64, 64 or 32 bytes
+//   below). K and V tiles come through a 3-stage cp.async ring, one tile
+//   ahead of the one computed (225 KB at hd = 128, one block an SM). q k^T
+//   is wgmma m64n128k16 with both operands
+//   in shared memory and an f32 accumulator; bf16 x bf16 products are exact
+//   in f32, so the scores differ from an f32 dot only by summation order.
+//   The online softmax runs on the accumulator fragments in registers (row
+//   max and sum over the 4 lanes of a quad). P.V is wgmma m64n(hd)k16 with
+//   P from registers and V read transposed from shared memory. P is split
+//   in two, hi = bf16(p) and lo = bf16(p - hi), and both products go into
+//   the same f32 accumulator: p is carried to about 16 bits instead of 8. A
+//   single bf16 P misses the check this kernel is held to (two bf16 ulps of
+//   the f32-P result) at about 5 % of the prefill's outputs; the split costs
+//   1.5 x the MMA work of a single P and keeps the function that of the
+//   f32-P kernel. A warpgroup whose rows all lie above a key tile skips it.
+//   Tile sizes and ring depth were chosen by timing (kernel_variants.py).
 // * f32 -> flash_fwd_kernel, every product and sum in full f32 FMA on the
 //   CUDA cores (no TF32, which would miss the f32 check of 1e-5): tiles
 //   staged in shared memory as f32, 256 threads each keeping a 4 x 4 block
@@ -56,9 +57,11 @@
 // skipping it is exact. The longest query tiles are issued first to even
 // out the causal triangle.
 //
-// What the bf16 design leaves on the table: wgmma (warpgroup MMA from
-// shared memory, the only route to the full tensor-core rate), TMA loads
-// from a producer warp, and a persistent schedule.
+// What the bf16 design leaves on the table: TMA loads from a producer
+// warp (the loads are cp.async by every thread, so a block-wide barrier
+// separates key tiles), warp specialisation with the softmax of one
+// warpgroup overlapping the products of the other, and a persistent
+// schedule.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -300,85 +303,87 @@ int launch_hd(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync), cp.async ring
+// bf16: tensor cores (wgmma), cp.async ring
 // ---------------------------------------------------------------------------
 
-namespace mma {
+namespace wg {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 128;           // query rows per block
-constexpr int BKV = 64;           // key rows per tile
-constexpr int NW = BQ / 16;       // warps; warp w owns query rows 16w..16w+15
-constexpr int NT = NW * 32;
-constexpr int STAGES = 2;         // K/V ring depth
-constexpr int NS = BKV / 8;       // n8 score tiles of a warp's 16 rows
+constexpr int BQ = 128;           // query rows per block: two warpgroups of 64
+constexpr int BKV = 128;          // key rows per tile
+constexpr int NT = 256;
+constexpr int AHEAD = 1;          // key tiles in flight ahead of the one computed
+// A stage is rewritten at the top of an iteration, before the barrier, while
+// the other warpgroup may still compute the previous tile: the ring holds
+// tiles kt - 1 .. kt + AHEAD.
+constexpr int STAGES = AHEAD + 2;
 
 template <int HD>
 constexpr int smem_bytes() {
-    return (BQ + 2 * STAGES * BKV) * HD * static_cast<int>(sizeof(bf16));
+    // + 1 KB to align the tiles to the 1 KB period of the swizzle
+    return (BQ + 2 * STAGES * BKV) * HD * static_cast<int>(sizeof(bf16)) + 1024;
 }
+
+// Shared-memory layout of a (rows, HD) bf16 tile, as wgmma reads it: HD is
+// cut into column blocks of RB bytes a row (64 values, or all of HD when it
+// is smaller), each block stored row after row, and within every 8-row group
+// the 16-byte chunks of a row XOR-swizzled by the row (the 128-, 64- or
+// 32-byte swizzle of the matrix descriptor, MODE).
+template <int HD> struct Layout {
+    static constexpr int RB = (HD < 64 ? HD : 64) * 2;
+    static constexpr int MASK = RB / 16 - 1;
+    static constexpr uint64_t MODE = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// element offset of 16-byte chunk c of row r in a (rows, HD) bf16 tile:
-// the chunk index is XOR-ed with the row, so the 8 rows that one ldmatrix
-// phase reads at one chunk column fall in 8 different bank groups
-template <int HD>
-__device__ __forceinline__ int at(int r, int c) {
-    constexpr int CH = HD / 8;
-    constexpr int W = CH < 8 ? CH : 8;
-    return r * HD + ((c ^ (r & (W - 1))) * 8);
+// byte offset of 16-byte chunk c (of HD / 8) of row r in a (ROWS, HD) tile
+template <int HD, int ROWS>
+__device__ __forceinline__ int chunk_at(int r, int c) {
+    constexpr int RB = Layout<HD>::RB, CB = RB / 16;
+    const int x = (c / CB) * ROWS * RB + r * RB + (c % CB) * 16;
+    return x ^ (((x >> 7) & Layout<HD>::MASK) << 4);
 }
 
 // rows [r0, r0 + ROWS) of one head's (S, HD) slice, row stride rs, into a
-// swizzled (ROWS, HD) tile by 16-byte cp.async; rows at or beyond S are
-// zero-filled (source size 0)
+// tile by 16-byte cp.async; rows at or beyond S are zero-filled
 template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src,
+__device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* __restrict__ src,
                                           long long rs, int r0, int S, int tid) {
-    constexpr int CH = HD / 8;
-    constexpr int N = ROWS * CH;
+    constexpr int CH = HD / 8, N = ROWS * CH;
 #pragma unroll
     for (int i = 0; i < (N + NT - 1) / NT; ++i) {
         const int e = tid + i * NT;
         if (N % NT == 0 || e < N) {
-            const int r = e / CH, c = e % CH;
-            const int s = r0 + r;
+            const int r = e / CH, c = e % CH, s = r0 + r;
             const bf16* g = src + static_cast<long long>(s < S ? s : S - 1) * rs + c * 8;
             asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                         :: "r"(smem_u32(dst + at<HD>(r, c))), "l"(g), "r"(s < S ? 16 : 0));
+                         :: "r"(smem_u32(dst + chunk_at<HD, ROWS>(r, c))), "l"(g),
+                            "r"(s < S ? 16 : 0));
         }
     }
 }
 
-__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void wait_groups() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+// wgmma matrix descriptor: start address, leading and stride byte offsets,
+// swizzle mode (tiles start on a 1 KB boundary, so the base offset is 0)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                         uint64_t mode) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+           | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16)
+           | (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32)
+           | (mode << 62);
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-                 "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-                 : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+__device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// registers an asynchronous wgmma reads or writes stay where they are until
+// this point: neither moved, reused nor read early by the compiler
+__device__ __forceinline__ void keep(float& x) { asm volatile("" : "+f"(x) :: "memory"); }
+__device__ __forceinline__ void keep(uint32_t& x) { asm volatile("" : "+r"(x) :: "memory"); }
 
 // p (two f32) as hi = bf16(p) and lo = bf16(p - hi), each a bf16 pair with
 // the first value in the low half; p - hi is exact in f32
@@ -389,37 +394,105 @@ __device__ __forceinline__ void split(float x, float y, uint32_t& hi, uint32_t& 
     lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// Grid (B * H, query tiles), longest query tile first; 8 warps. The
-// accumulator of a warp's 16 rows is 16 x HD f32 in registers (HD/2 a
-// thread), its score tile 16 x 64 (32 a thread): the launch bound of two
-// blocks an SM leaves 128 registers a thread.
-template <int HD>
-__global__ void __launch_bounds__(NT, 2)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     int S, int H, int groups, int causal, float scale_log2,
-                     long long qsb, long long qss, long long qsh,
-                     long long ksb, long long kss, long long ksh,
-                     long long vsb, long long vss, long long vsh)
-{
-    constexpr int KS = HD / 16;   // k16 steps of q.k
-    constexpr int NO = HD / 8;    // n8 tiles of the output
-    static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
+// d (64 x N, f32) += a (64 x 16, bf16) * b (16 x N, bf16). ss: a and b from
+// shared memory, both K-major, d overwritten where scale_d is 0; rs: a from
+// registers (the mma.sync A fragment of each warp's 16 rows), b MN-major
+// (transposed). Lane (g, t) = (lane / 4, lane % 4) of warp w holds
+// d[4j + 2i + e] = D[16w + g + 8i][8j + 2t + e].
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+                 "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+                 : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+                 "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+                 : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+                 "{%0,%1,%2,%3,%4,%5,%6,%7}, {%8,%9,%10,%11}, %12, p, 1, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+                 "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, {%16,%17,%18,%19}, %20, p, 1, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+                 "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, {%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+                 "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, {%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
-    extern __shared__ __align__(128) unsigned char smem_raw[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // (BQ, HD)
-    bf16* Ks = Qs + BQ * HD;                          // STAGES x (BKV, HD)
-    bf16* Vs = Ks + STAGES * BKV * HD;                // STAGES x (BKV, HD)
+// N = BKV: 128 as shipped, 64 in kernel_variants.py's 64-key variant
+template <int N>
+__device__ __forceinline__ void qk(float (&s)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+    if constexpr (N == 128) wgmma_ss_n128(s, da, db, scale_d);
+    else wgmma_ss_n64(s, da, db, scale_d);
+}
+
+template <int HD>
+__device__ __forceinline__ void pv(float (&o)[HD / 2], const uint32_t (&a)[4], uint64_t db) {
+    if constexpr (HD == 128) wgmma_rs_n128(o, a, db);
+    else if constexpr (HD == 64) wgmma_rs_n64(o, a, db);
+    else if constexpr (HD == 32) wgmma_rs_n32(o, a, db);
+    else wgmma_rs_n16(o, a, db);
+}
+
+// Grid (B * H, query tiles), longest query tile first; two warpgroups, each
+// owning 64 query rows. A thread keeps 64 x HD / 128 accumulator values and
+// 64 x BKV / 128 scores, so one block an SM.
+template <int HD>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o,
+                       int S, int H, int groups, int causal, float scale_log2,
+                       long long qsb, long long qss, long long qsh,
+                       long long ksb, long long kss, long long ksh,
+                       long long vsb, long long vss, long long vsh)
+{
+    constexpr int RB = Layout<HD>::RB;
+    constexpr uint64_t MODE = Layout<HD>::MODE;
+    constexpr int KS = HD / 16;           // k16 steps of q.k
+    constexpr int NS = BKV / 8;           // n8 column groups of the scores
+    constexpr int KC = BKV / 16;          // k16 steps of p.v
+    constexpr int QB = BQ * HD * 2, KB = BKV * HD * 2;   // tile bytes
+    static_assert(HD % 16 == 0 && HD <= 128, "head_dim 16, 32, 64 or 128");
+
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    unsigned char* Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    unsigned char* Ks = Qs + QB;                  // STAGES x (BKV, HD)
+    unsigned char* Vs = Ks + STAGES * KB;         // STAGES x (BKV, HD)
+    const uint32_t q_s = smem_u32(Qs), k_s = smem_u32(Ks), v_s = smem_u32(Vs);
 
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
+    const int wgi = warp >> 2;                    // warpgroup
     const int bh = blockIdx.x;
     const int b = bh / H, h = bh % H;
     const int kvh = h / groups;
     const int qt = static_cast<int>(gridDim.y) - 1 - static_cast<int>(blockIdx.y);
     const int q0 = qt * BQ;
-    const int wq0 = q0 + warp * 16;         // first query row of this warp
-    const int row_a = wq0 + g, row_b = row_a + 8;
+    const int g0 = q0 + wgi * 64;                 // first query row of the warpgroup
+    const int row_a = g0 + (warp & 3) * 16 + g, row_b = row_a + 8;
 
     const bf16* qb = q + b * qsb + h * qsh;
     const bf16* kb = k + b * ksb + kvh * ksh;
@@ -428,132 +501,139 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     int n_kt = (S + BKV - 1) / BKV;
     if (causal) n_kt = min(n_kt, (q0 + BQ - 1) / BKV + 1);   // exact skip
 
+    // Q with the first key tile, then one group per key tile
     load_tile<HD, BQ>(Qs, qb, qss, q0, S, tid);
-    load_tile<HD, BKV>(Ks, kb, kss, 0, S, tid);
-    load_tile<HD, BKV>(Vs, vb, vss, 0, S, tid);
-    commit();
+#pragma unroll
+    for (int i = 0; i < AHEAD; ++i) {
+        if (i < n_kt) {
+            load_tile<HD, BKV>(Ks + i * KB, kb, kss, i * BKV, S, tid);
+            load_tile<HD, BKV>(Vs + i * KB, vb, vss, i * BKV, S, tid);
+        }
+        asm volatile("cp.async.commit_group;\n" ::);
+    }
 
-    float acc[NO][4];
+    float acc[HD / 2];
 #pragma unroll
-    for (int j = 0; j < NO; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
     // rows row_a (i = 0) and row_b (i = 1); m in units of log2
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
-    // ldmatrix lane addresses: Q's A operand (row lane % 16, chunk lane / 16),
-    // K's B operand (key (lane / 16) * 8 + lane % 8, chunk (lane / 8) % 2),
-    // V's B operand through .trans (key ((lane / 8) % 2) * 8 + lane % 8,
-    // chunk lane / 16)
-    const int a_row = warp * 16 + (lane & 15), a_ch = lane >> 4;
-    const int k_row = ((lane >> 4) << 3) + (lane & 7), k_ch = (lane >> 3) & 1;
-    const int v_row = (((lane >> 3) & 1) << 3) + (lane & 7), v_ch = lane >> 4;
-
     for (int kt = 0; kt < n_kt; ++kt) {
-        if (kt + 1 < n_kt) {
-            const int st = (kt + 1) % STAGES;
-            load_tile<HD, BKV>(Ks + st * BKV * HD, kb, kss, (kt + 1) * BKV, S, tid);
-            load_tile<HD, BKV>(Vs + st * BKV * HD, vb, vss, (kt + 1) * BKV, S, tid);
+        if (kt + AHEAD < n_kt) {
+            const int st = (kt + AHEAD) % STAGES;
+            load_tile<HD, BKV>(Ks + st * KB, kb, kss, (kt + AHEAD) * BKV, S, tid);
+            load_tile<HD, BKV>(Vs + st * KB, vb, vss, (kt + AHEAD) * BKV, S, tid);
         }
-        commit();
-        wait_groups<1>();         // tile kt (and Q) have landed
+        asm volatile("cp.async.commit_group;\n" ::);
+        asm volatile("cp.async.wait_group %0;\n" :: "n"(AHEAD));   // tile kt landed
+        // cp.async writes through the generic proxy, wgmma reads through the
+        // async proxy
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         __syncthreads();
 
-        const int k0 = kt * BKV;
-        const bf16* Kt = Ks + (kt % STAGES) * BKV * HD;
-        const bf16* Vt = Vs + (kt % STAGES) * BKV * HD;
-        // a warp whose rows all precede the tile's first key skips it (exact)
-        if (!causal || k0 <= wq0 + 15) {
-            float s[NS][4];
-#pragma unroll
-            for (int j = 0; j < NS; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-            for (int kk = 0; kk < KS; ++kk) {
-                uint32_t a[4];
-                ldsm_x4(a, smem_u32(Qs + at<HD>(a_row, 2 * kk + a_ch)));
-#pragma unroll
-                for (int jp = 0; jp < NS / 2; ++jp) {
-                    uint32_t bq[4];
-                    ldsm_x4(bq, smem_u32(Kt + at<HD>(jp * 16 + k_row, 2 * kk + k_ch)));
-                    mma_16816(s[2 * jp], a, bq[0], bq[1]);
-                    mma_16816(s[2 * jp + 1], a, bq[2], bq[3]);
-                }
-            }
+        const int k0 = kt * BKV, st = kt % STAGES;
+        // a warpgroup whose rows all precede the tile's first key skips it
+        if (causal && k0 > g0 + 63) continue;
 
-            // scale after the dot (in units of log2), mask, row max
-            const bool edge = (causal && k0 + BKV - 1 > wq0) || k0 + BKV > S;
-            float mx[2] = {m[0], m[1]};
+        // scores s = q k^T, f32, on the tensor cores
+        float s[NS * 4];
 #pragma unroll
-            for (int j = 0; j < NS; ++j)
+        for (int i = 0; i < NS * 4; ++i) s[i] = 0.f;
 #pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    float x = s[j][e] * scale_log2;
-                    if (edge) {
-                        const int kpos = k0 + j * 8 + 2 * t + (e & 1);
-                        const int qpos = e < 2 ? row_a : row_b;
-                        if (kpos >= S || (causal && kpos > qpos)) x = NEG_INF;
-                    }
-                    s[j][e] = x;
-                    mx[e >> 1] = fmaxf(mx[e >> 1], x);
-                }
-            float alpha[2];
+        for (int i = 0; i < NS * 4; ++i) keep(s[i]);
+        fence();
 #pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-                mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-                alpha[i] = exp2f(m[i] - mx[i]);
-                m[i] = mx[i];
-            }
-            // p = masked ? 0 : exp(logit - m_new); l takes the unrounded p
-            float rs[2] = {0.f, 0.f};
-#pragma unroll
-            for (int j = 0; j < NS; ++j)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    bool ok = true;
-                    if (edge) {
-                        const int kpos = k0 + j * 8 + 2 * t + (e & 1);
-                        const int qpos = e < 2 ? row_a : row_b;
-                        ok = kpos < S && (!causal || kpos <= qpos);
-                    }
-                    const float p = ok ? exp2f(s[j][e] - mx[e >> 1]) : 0.f;
-                    s[j][e] = p;
-                    rs[e >> 1] += p;
-                }
-#pragma unroll
-            for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
-#pragma unroll
-            for (int j = 0; j < NO; ++j) {
-                acc[j][0] *= alpha[0];
-                acc[j][1] *= alpha[0];
-                acc[j][2] *= alpha[1];
-                acc[j][3] *= alpha[1];
-            }
-
-            // acc += P V over 16-key chunks, P = hi + lo as the A operand
-#pragma unroll
-            for (int kc = 0; kc < BKV / 16; ++kc) {
-                uint32_t ph[4], pl[4];
-                split(s[2 * kc][0], s[2 * kc][1], ph[0], pl[0]);
-                split(s[2 * kc][2], s[2 * kc][3], ph[1], pl[1]);
-                split(s[2 * kc + 1][0], s[2 * kc + 1][1], ph[2], pl[2]);
-                split(s[2 * kc + 1][2], s[2 * kc + 1][3], ph[3], pl[3]);
-#pragma unroll
-                for (int np = 0; np < HD / 16; ++np) {
-                    uint32_t bv[4];
-                    ldsm_x4_trans(bv, smem_u32(Vt + at<HD>(kc * 16 + v_row, 2 * np + v_ch)));
-                    mma_16816(acc[2 * np], ph, bv[0], bv[1]);
-                    mma_16816(acc[2 * np], pl, bv[0], bv[1]);
-                    mma_16816(acc[2 * np + 1], ph, bv[2], bv[3]);
-                    mma_16816(acc[2 * np + 1], pl, bv[2], bv[3]);
-                }
-            }
+        for (int kk = 0; kk < KS; ++kk) {
+            const int nb = kk * 32 / RB, in = kk * 32 % RB;   // column block, bytes into it
+            qk<BKV>(s, desc(q_s + nb * BQ * RB + wgi * 64 * RB + in, 16, 8 * RB, MODE),
+                    desc(k_s + st * KB + nb * BKV * RB + in, 16, 8 * RB, MODE), kk > 0);
         }
-        __syncthreads();          // stage kt % STAGES is free for tile kt + 2
+        commit();
+        wait();
+#pragma unroll
+        for (int i = 0; i < NS * 4; ++i) keep(s[i]);
+
+        // scale after the dot (in units of log2), mask, row max over the
+        // quad that holds a row
+        const bool edge = (causal && k0 + BKV - 1 > g0) || k0 + BKV > S;
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                float x = s[4 * j + e] * scale_log2;
+                if (edge) {
+                    const int kpos = k0 + j * 8 + 2 * t + (e & 1);
+                    const int qpos = e < 2 ? row_a : row_b;
+                    if (kpos >= S || (causal && kpos > qpos)) x = NEG_INF;
+                }
+                s[4 * j + e] = x;
+                mx[e >> 1] = fmaxf(mx[e >> 1], x);
+            }
+        float alpha[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+            mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+            alpha[i] = exp2f(m[i] - mx[i]);
+            m[i] = mx[i];
+        }
+        // p = masked ? 0 : exp(logit - m_new); l takes the unrounded p
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                bool ok = true;
+                if (edge) {
+                    const int kpos = k0 + j * 8 + 2 * t + (e & 1);
+                    const int qpos = e < 2 ? row_a : row_b;
+                    ok = kpos < S && (!causal || kpos <= qpos);
+                }
+                const float p = ok ? exp2f(s[4 * j + e] - mx[e >> 1]) : 0.f;
+                s[4 * j + e] = p;
+                rs[e >> 1] += p;
+            }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+            acc[4 * j + 0] *= alpha[0];
+            acc[4 * j + 1] *= alpha[0];
+            acc[4 * j + 2] *= alpha[1];
+            acc[4 * j + 3] *= alpha[1];
+        }
+
+        // acc += P V over 16-key steps, P = hi + lo as the register operand,
+        // V (keys x HD, HD contiguous) read transposed
+        uint32_t ph[KC][4], pl[KC][4];
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+                split(s[8 * kc + 2 * r], s[8 * kc + 2 * r + 1], ph[kc][r], pl[kc][r]);
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) keep(acc[i]);
+        fence();
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+            const uint64_t dv = desc(v_s + st * KB + kc * 16 * RB, BKV * RB, 8 * RB, MODE);
+            pv<HD>(acc, ph[kc], dv);
+            pv<HD>(acc, pl[kc], dv);
+        }
+        commit();
+        wait();
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) keep(acc[i]);
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                keep(ph[kc][r]);
+                keep(pl[kc][r]);
+            }
     }
-    wait_groups<0>();
+    asm volatile("cp.async.wait_group 0;\n" ::);
 
     // the 4 lanes of a quad hold parts of the same two rows
 #pragma unroll
@@ -569,32 +649,30 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float denom = fmaxf(l[i], 1e-30f);
         bf16* orow = o + ((static_cast<long long>(b) * S + r) * H + h) * HD;
 #pragma unroll
-        for (int j = 0; j < NO; ++j) {
-            const __nv_bfloat162 val = __floats2bfloat162_rn(acc[j][2 * i] / denom,
-                                                             acc[j][2 * i + 1] / denom);
-            *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * t) = val;
-        }
+        for (int j = 0; j < HD / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * t) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * i] / denom, acc[4 * j + 2 * i + 1] / denom);
     }
 }
 
-}  // namespace mma
+}  // namespace wg
 
 template <int HD>
-int launch_mma_hd(const void* q, const void* k, const void* v, void* o,
-                  int B, int S, int H, int KV, int causal, float scale,
-                  long long qsb, long long qss, long long qsh,
-                  long long ksb, long long kss, long long ksh,
-                  long long vsb, long long vss, long long vsh, void* stream)
+int launch_wgmma_hd(const void* q, const void* k, const void* v, void* o,
+                    int B, int S, int H, int KV, int causal, float scale,
+                    long long qsb, long long qss, long long qsh,
+                    long long ksb, long long kss, long long ksh,
+                    long long vsb, long long vss, long long vsh, void* stream)
 {
-    constexpr int smem = mma::smem_bytes<HD>();
+    constexpr int smem = wg::smem_bytes<HD>();
     const cudaError_t err = cudaFuncSetAttribute(
-        mma::flash_fwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        wg::flash_fwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(B * H, (S + mma::BQ - 1) / mma::BQ);
+    const dim3 grid(B * H, (S + wg::BQ - 1) / wg::BQ);
     // scores are scaled into units of log2 so the kernel exponentiates with
     // exp2: exp(x * scale - m) == exp2(x * scale * log2(e) - m * log2(e))
     const float scale_log2 = scale * 1.4426950408889634f;
-    mma::flash_fwd_mma_kernel<HD><<<grid, mma::NT, smem, static_cast<cudaStream_t>(stream)>>>(
+    wg::flash_fwd_wgmma_kernel<HD><<<grid, wg::NT, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
         S, H, H / KV, causal, scale_log2,
@@ -603,7 +681,7 @@ int launch_mma_hd(const void* q, const void* k, const void* v, void* o,
 }
 
 // the kernel of each input type: f32 -> FMA (launch_hd), bf16 -> tensor
-// cores (launch_mma_hd)
+// cores (launch_wgmma_hd)
 template <typename T, int HD>
 int launch_type_hd(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int H, int KV, int causal, float scale,
@@ -612,8 +690,8 @@ int launch_type_hd(const void* q, const void* k, const void* v, void* o,
                    long long vsb, long long vss, long long vsh, void* stream)
 {
     if constexpr (sizeof(T) == 2)
-        return launch_mma_hd<HD>(q, k, v, o, B, S, H, KV, causal, scale,
-                                 qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, stream);
+        return launch_wgmma_hd<HD>(q, k, v, o, B, S, H, KV, causal, scale,
+                                   qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, stream);
     else
         return launch_hd<T, HD>(q, k, v, o, B, S, H, KV, causal, scale,
                                 qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, stream);

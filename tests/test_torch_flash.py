@@ -156,11 +156,11 @@ def test_kernel_wrapper_raises_on_what_it_does_not_take():
     assert launch_counts()["flash_attention"] == 0
 
 
-# The bf16 kernel's arithmetic (csrc/flash_attention.cu, the mma route),
+# The bf16 kernel's arithmetic (csrc/flash_attention.cu, the wgmma route),
 # emulated in plain PyTorch: the card's check holds the kernel to two bf16
 # ulps of the f32-P result (BF16_RTOL / BF16_ATOL), and these tests show
 # that P split into bf16 hi + lo meets that bound where one bf16 P does not.
-KEY_TILE = 64       # mma::BKV, the kernel's key tile
+KEY_TILE = 128      # wg::BKV, the kernel's key tile
 
 
 def _blockwise_bf16(q, k, v, *, split: bool) -> torch.Tensor:
