@@ -29,6 +29,19 @@ Phases, each printing one JSON line:
            children each create their own CUDA context and load the built
            libraries; they must give the serial sweep's cells and report
            launches of both kernels, and a failing shard fails the phase
+  kv       the KV serving family: its int64 SplitMix64 math on the card
+           bit for bit against the numpy oracle at 2^20 rows (row
+           checksums at widths 7 and 15, value words of 24), then the KV
+           figure's full matrix (three workloads of 48 requests, five
+           strategies, no crash plus every step torn at three fractions
+           twice: 4 335 cells) in ``mode="batched"``, which must equal
+           ``mode="measure"`` cell for cell with no fallback, no device
+           verdict overturned by the host and the figure's census gate met
+  device   the ``device`` emulator backend (cache transitions on the card)
+           against ``vectorized``: a streaming-prefix trace of 2 000 000
+           elements where every span op must take the device path, the
+           emulator benchmark's mixed trace under LRU and FIFO, and a
+           batched CG sweep; images, traffic stats and cells identical
   serve    the dense LM's serving path on llama3-8b at full width and full
            depth, random weights from a seeded generator on the card:
            prefill of 2 prompts x 4096 tokens with flash attention (the
@@ -46,6 +59,7 @@ The last line of a full run is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -66,8 +80,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 
+import repro_torch  # noqa: E402
 from repro_torch.core.backends import batched  # noqa: E402
-from repro_torch.core.nvm import NVMConfig  # noqa: E402
+from repro_torch.core.nvm import CrashEmulator, NVMConfig  # noqa: E402
 from repro_torch.kernels import _build, launch_counts  # noqa: E402
 from repro_torch.kernels.abft_matmul import kernel as mm_kernel  # noqa: E402
 from repro_torch.kernels.abft_matmul import ops as mm_ops  # noqa: E402
@@ -81,7 +96,8 @@ from repro_torch.scenarios import (CrashPlan, TornSpec,  # noqa: E402
                                    deterministic_cell_dict, sweep)
 from repro_torch.scenarios import batched_engine, driver  # noqa: E402
 
-PHASES = ("card", "build", "kernels", "sweep", "sharded", "serve")
+PHASES = ("card", "build", "kernels", "sweep", "sharded", "kv", "device",
+          "serve")
 
 # tensor-core instructions counted in each kernel's SASS, and the kernels
 # that must have them: library -> (name in the kernel's symbol, kinds)
@@ -131,6 +147,41 @@ WORKLOADS = (
     ("mm", {"n": 1024, "k": 256, "seed": 1024}),    # the recompute figure's largest
     ("mm", {"n": 64, "k": 16, "seed": 2}),          # the torn-crash figure's
 )
+
+# the KV phase: the integer math at 2^20 rows, then the KV figure's full
+# matrix (benchmarks/fig_kv.py: WORKLOADS, STRATEGIES, FRACTIONS, SAMPLES,
+# SEED, a 1 MiB cache)
+KV_MATH_ROWS = 1 << 20
+KV_VALUE_WORDS = 24
+KV_MATH_SEED = 14
+I64 = np.iinfo(np.int64)
+# words with the top bit set, all bits set, the largest positive, and
+# keys whose high bits overflow ``key << 21``
+KV_EXTREMES = np.array([-1, I64.max, I64.min, 1 << 62, -(1 << 43),
+                        (1 << 43) - 1, 0x5555555555555555, 0, 1],
+                       dtype=np.int64)
+KV_SEED = 31
+KV_FRACTIONS = (0.25, 0.5, 0.75)
+KV_SAMPLES = 2
+KV_WORKLOADS = (
+    ("kv", {"profile": "etc", "n_steps": 48, "seed": 11}),
+    ("kv", {"profile": "udb", "n_steps": 48, "seed": 11}),
+    ("kv", {"profile": "udb", "n_steps": 48, "seed": 11, "policy": "blind"}),
+)
+KV_STRATEGIES = ("none", "adcc", "undo_log", "checkpoint_nvm@4",
+                 "shadow_snapshot")
+# the figure's census gate: strategies that keep the acknowledged prefix
+# by construction never give a durability or atomicity violation cell
+KV_CLEAN_STRATEGIES = ("adcc", "shadow_snapshot", "undo_log")
+KV_VIOLATION_CLASSES = ("durability_violation", "atomicity_violation",
+                        "torn_corrupt", "lost_updates")
+
+# the device phase: the sweep benchmark's streaming-prefix trace
+# (benchmarks/scenarios_sweep.py) and the emulator benchmark's default
+# mixed trace (benchmarks/emu_bench.py)
+PREFIX_ELEMS, PREFIX_PASSES = 2_000_000, 6
+EMU_ELEMS, EMU_OPS, EMU_CACHE_FRAC, EMU_SEED = 1_000_000, 2000, 0.5, 0
+DEVICE_SWEEP_WORKLOAD = WORKLOADS[1]
 
 
 def emit(obj) -> None:
@@ -698,6 +749,377 @@ def phase_sharded() -> None:
           "seconds": seconds, "worker_launches": worker_launches})
 
 
+def _np_row_checksums(words: np.ndarray) -> np.ndarray:
+    """The KV row checksum chain in numpy uint64 (the oracle)."""
+    w = words.view(np.uint64)
+    acc = np.full(len(w), batched._KV_MIX_INIT, dtype=np.uint64)
+    for j in range(w.shape[1]):
+        acc = batched._np_splitmix(acc ^ w[:, j])
+    return (acc & np.uint64(batched._MASK63)).astype(np.int64)
+
+
+def _np_value_words(keys: np.ndarray, seqs: np.ndarray, W: int):
+    """The (N, W) value words of (key, seq) in numpy uint64 (the oracle)."""
+    base = batched._np_splitmix(
+        (keys.view(np.uint64) << np.uint64(batched._KV_VALUE_SALT))
+        ^ seqs.view(np.uint64))
+    with np.errstate(over="ignore"):
+        expect = batched._np_splitmix(
+            base[:, None] + np.arange(W, dtype=np.uint64)[None, :])
+    return (expect & np.uint64(batched._MASK63)).astype(np.int64)
+
+
+def _timed_call(fn, reps: int = 3) -> tuple:
+    """``fn()``'s result, and its mean wall milliseconds over ``reps``
+    calls after one warm-up with the seconds of ``batched.profile``'s
+    phases a call (numpy in, numpy out: uploads, device math, download)."""
+    out = fn()
+    batched.reset_profile()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    ms = 1e3 * (time.perf_counter() - t0) / reps
+    phases = {k: 1e3 * batched.profile[k] / reps
+              for k in ("upload_seconds", "device_seconds",
+                        "download_seconds")}
+    return out, ms, {k.replace("_seconds", "_ms"): v
+                     for k, v in phases.items()}
+
+
+def _kv_math() -> dict:
+    """The KV integer math on the card at 2^20 rows against the numpy
+    oracle, bit for bit, from words over the whole 64-bit range. Times:
+    the public call (numpy in, numpy out, host clock, by phase) and the
+    device math alone on resident tensors (CUDA events), beside the bytes
+    it must move at the card's rate."""
+    dev = repro_torch.get_device()
+    rng = np.random.default_rng(KV_MATH_SEED)
+    N, W = KV_MATH_ROWS, KV_VALUE_WORDS
+    out = {"rows": N}
+    for width in (7, 15):
+        words = rng.integers(I64.min, I64.max, size=(N, width),
+                             dtype=np.int64, endpoint=True)
+        words.reshape(-1)[:len(KV_EXTREMES)] = KV_EXTREMES
+        want = _np_row_checksums(words)
+        got, call_ms, phases = _timed_call(
+            lambda: batched.kv_row_checksums(words))
+        if not np.array_equal(got, want):
+            bad = int(np.flatnonzero(got != want)[0])
+            raise AssertionError(
+                f"kv_row_checksums width {width}: row {bad} {words[bad]} "
+                f"gives {got[bad]} on the card, {want[bad]} in numpy")
+        wt = torch.from_numpy(words).to(dev)
+        if not np.array_equal(batched._t_row_checksums(wt).cpu().numpy(),
+                              want):
+            raise AssertionError(f"row checksums width {width} on resident "
+                                 f"tensors differ from numpy")
+        out[f"row_checksums_w{width}"] = {
+            "bit_equal": True, "call_ms": call_ms, "call_phases": phases,
+            "device_ms": time_ms(lambda: batched._t_row_checksums(wt), 10),
+            "bytes_bound_ms": 1e3 * 8.0 * N * (width + 1) / PEAK_BYTES_PER_S}
+        del wt
+
+    keys = rng.integers(I64.min, I64.max, size=N, dtype=np.int64,
+                        endpoint=True)
+    keys[:len(KV_EXTREMES)] = KV_EXTREMES
+    seqs = rng.integers(I64.min, I64.max, size=N, dtype=np.int64,
+                        endpoint=True)
+    nwords = rng.integers(1, W + 1, size=N).astype(np.int64)
+    expect = _np_value_words(keys, seqs, W)
+    live = np.arange(W)[None, :] < nwords[:, None]
+    # live words as the oracle gives them, dead ones arbitrary
+    got = np.where(live, expect, rng.integers(I64.min, I64.max, size=(N, W),
+                                              dtype=np.int64))
+    # one live word of every even row corrupted in one random bit
+    rows = np.arange(0, N, 2)
+    cols = (rng.random(len(rows)) * nwords[rows]).astype(np.int64)
+    got[rows, cols] ^= np.left_shift(
+        np.int64(1), rng.integers(0, 63, size=len(rows)).astype(np.int64))
+    want = np.ones(N, dtype=bool)
+    want[rows] = False
+    oracle = np.all(np.where(live, got == expect, True), axis=1)
+    if not np.array_equal(oracle, want):
+        raise AssertionError("the value-word oracle misses a corruption")
+    ok, call_ms, phases = _timed_call(
+        lambda: batched.kv_value_match(keys, seqs, got, nwords))
+    if not np.array_equal(ok, want):
+        bad = int(np.flatnonzero(ok != want)[0])
+        raise AssertionError(f"kv_value_match: row {bad} (key {keys[bad]}, "
+                             f"seq {seqs[bad]}, {nwords[bad]} words) is "
+                             f"{ok[bad]} on the card, {want[bad]} in numpy")
+    kt, st, gt, nt = (torch.from_numpy(x).to(dev)
+                      for x in (keys, seqs, got, nwords))
+    out["value_match_w24"] = {
+        "bit_equal": True, "corrupted_rows": len(rows), "call_ms": call_ms,
+        "call_phases": phases,
+        "device_ms": time_ms(lambda: batched._t_value_match(kt, st, gt, nt),
+                             10),
+        "bytes_bound_ms": 1e3 * (8.0 * N * (W + 3) + N) / PEAK_BYTES_PER_S}
+    del kt, st, gt, nt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _kv_plans():
+    return (CrashPlan.no_crash(),) + tuple(
+        CrashPlan.at_every_step(torn=TornSpec(fraction=f, seed=KV_SEED,
+                                              mode="random",
+                                              samples=KV_SAMPLES))
+        for f in KV_FRACTIONS)
+
+
+def _kv_census(cells) -> dict:
+    """The KV figure's gates on the correctness classes of its cells
+    (benchmarks/fig_kv.py ``check_kv_gates``, less the sharded and
+    full-execution cross-checks and the overhead budget)."""
+    violations, atom = {}, {}
+    for c in cells:
+        policy = c.workload_params.get("policy", "validate")
+        if c.correctness_class in KV_VIOLATION_CLASSES and c.correct:
+            raise AssertionError(f"violation cell finalized correct: "
+                                 f"{c.strategy} {c.plan} {c.crash_step}")
+        if c.correctness_class == "complete" and not c.correct:
+            raise AssertionError(f"complete cell finalized incorrect: "
+                                 f"{c.strategy} {c.plan} {c.crash_step}")
+        if c.correctness_class in ("durability_violation",
+                                   "atomicity_violation"):
+            if policy == "validate":
+                violations[c.strategy] = violations.get(c.strategy, 0) + 1
+            if c.correctness_class == "atomicity_violation":
+                atom[policy] = atom.get(policy, 0) + 1
+    for strat in KV_CLEAN_STRATEGIES:
+        if violations.get(strat):
+            raise AssertionError(f"{strat} gave {violations[strat]} "
+                                 f"durability/atomicity violation cells")
+    if not violations.get("none"):
+        raise AssertionError("scratch restart gave no durability violation")
+    if not atom.get("blind"):
+        raise AssertionError("blind recovery gave no atomicity violation")
+    if atom.get("validate"):
+        raise AssertionError("validating recovery gave atomicity violations")
+    return {"violation_cells_validate": violations,
+            "atomicity_cells_by_policy": atom}
+
+
+def phase_kv() -> None:
+    """The KV serving family on the card: its integer math, then the KV
+    figure's full matrix, batched against measure."""
+    if repro_torch.get_device().type != "cuda":
+        raise AssertionError("the KV phase must run its math on the card")
+    emit({"phase": "kv_math", **_kv_math()})
+    kw = dict(strategies=KV_STRATEGIES, plans=_kv_plans(),
+              cfg=NVMConfig(cache_bytes=1024 * 1024), engine="fork",
+              workers=1)
+    per_workload, every = [], []
+    for spec in KV_WORKLOADS:
+        # counts to zero just before the path, read just after
+        mm_kernel.launches = cv_kernel.launches = fa_kernel.launches = 0
+        batched.reset_profile()
+        batched_engine.reset_stats()
+        t0 = time.perf_counter()
+        cells = sweep([spec], mode="batched", **kw)
+        torch.cuda.synchronize()
+        t_batched = time.perf_counter() - t0
+        profile = dict(batched.profile)
+        overturned = batched_engine.stats["kv_overturned"]
+        if launch_counts() != dict.fromkeys(launch_counts(), 0):
+            raise AssertionError(f"{spec}: the KV sweep launched a kernel: "
+                                 f"{launch_counts()}")
+        t0 = time.perf_counter()
+        measured = sweep([spec], mode="measure", **kw)
+        t_measure = time.perf_counter() - t0
+        if len(cells) != len(measured) or not cells:
+            raise AssertionError(f"{spec}: {len(cells)} batched cells vs "
+                                 f"{len(measured)} measure cells")
+        for got, want in zip(cells, measured):
+            if _cell(got) != _cell(want):
+                raise AssertionError(
+                    f"{spec}: batched cell differs from measure cell\n"
+                    f"batched: {_cell(got)}\nmeasure: {_cell(want)}")
+        fallbacks = sum("batched_fallback" in c.info for c in cells)
+        if fallbacks:
+            raise AssertionError(f"{spec}: {fallbacks} cells fell back")
+        if overturned:
+            raise AssertionError(f"{spec}: the host overturned {overturned} "
+                                 f"verdicts of the device math")
+        if profile["kv_checksum_calls"] <= 0:
+            raise AssertionError(f"{spec}: the KV math never ran")
+        every += measured
+        transfer = (profile["upload_seconds"] + profile["download_seconds"])
+        per_workload.append({
+            "workload": [spec[0], spec[1]], "cells": len(cells),
+            "adcc_cells": sum(c.strategy == "adcc" for c in cells),
+            "batched_seconds": t_batched, "measure_seconds": t_measure,
+            "fallbacks": fallbacks, "overturned": overturned,
+            "kv_checksum_calls": profile["kv_checksum_calls"],
+            "kv_checksum_rows": profile["kv_checksum_rows"],
+            "checksum_rows_per_call": (profile["kv_checksum_rows"]
+                                       / profile["kv_checksum_calls"]),
+            "kv_value_calls": profile["kv_value_calls"],
+            "kv_value_rows": profile["kv_value_rows"],
+            "value_rows_per_call": (profile["kv_value_rows"]
+                                    / max(1, profile["kv_value_calls"])),
+            "device_seconds": profile["device_seconds"],
+            "transfer_seconds": transfer,
+            "host_seconds": t_batched - transfer - profile["device_seconds"],
+        })
+        emit({"phase": "kv", **per_workload[-1]})
+    emit({"phase": "kv_total",
+          "cells": sum(w["cells"] for w in per_workload),
+          "batched_seconds": sum(w["batched_seconds"] for w in per_workload),
+          "measure_seconds": sum(w["measure_seconds"] for w in per_workload),
+          "census": _kv_census(every)})
+
+
+def _emu_trace(n_elems: int, n_ops: int, seed: int) -> list:
+    """The emulator benchmark's trace (benchmarks/emu_bench.py
+    ``make_trace``): (op, lo, hi) spans of 2048-16384 elements, writes
+    and reads dominating, flushes of a span or of everything between."""
+    rng = np.random.default_rng(seed)
+    ops = []
+    for _ in range(n_ops):
+        u = rng.random()
+        span = int(rng.integers(2048, 16384))
+        lo = int(rng.integers(0, max(1, n_elems - span)))
+        hi = min(n_elems, lo + span)
+        if u < 0.50:
+            ops.append(("write", lo, hi))
+        elif u < 0.80:
+            ops.append(("read", lo, hi))
+        elif u < 0.95:
+            ops.append(("flush", lo, hi))
+        else:
+            ops.append(("flush", 0, n_elems))
+    return ops
+
+
+def _replay(backend: str, n_elems: int, cache_bytes: int, trace,
+            replacement: str) -> dict:
+    """One emulator over one region replaying ``trace``: its image,
+    traffic stats, wall seconds, and (device) how many span ops took the
+    device path and how many declined it."""
+    emu = CrashEmulator(NVMConfig(backend=backend, cache_bytes=cache_bytes,
+                                  replacement=replacement))
+    region = emu.alloc("data", (n_elems,), np.float64)
+    region.view[:] = np.arange(n_elems, dtype=np.float64)
+    batched.reset_profile()
+    t0 = time.perf_counter()
+    for op, lo, hi in trace:
+        getattr(emu, op)("data", lo, hi)
+    emu.drain()
+    seconds = time.perf_counter() - t0
+    return {"image": emu.store.image["data"].copy(),
+            "stats": dataclasses.asdict(emu.stats), "seconds": seconds,
+            "device_ops": getattr(emu.backend, "device_ops", 0),
+            "declined_ops": getattr(emu.backend, "declined_ops", 0),
+            "profile": dict(batched.profile)}
+
+
+def _same_replay(name: str, a: dict, b: dict) -> None:
+    if not np.array_equal(a["image"], b["image"]):
+        raise AssertionError(f"{name}: NVM images differ")
+    if a["stats"] != b["stats"]:
+        raise AssertionError(f"{name}: traffic stats differ: {a['stats']} "
+                             f"vs {b['stats']}")
+
+
+def _replay_line(run: dict) -> dict:
+    prof = run["profile"]
+    return {"seconds": run["seconds"], "device_ops": run["device_ops"],
+            "declined_ops": run["declined_ops"],
+            "cache_op_calls": prof["cache_op_calls"],
+            "validity_calls": prof["validity_calls"],
+            "upload_seconds": prof["upload_seconds"],
+            "device_seconds": prof["device_seconds"],
+            "download_seconds": prof["download_seconds"]}
+
+
+def phase_device() -> None:
+    """The ``device`` emulator backend on the card against
+    ``vectorized``: identical images, traffic stats and cells."""
+    # (a) the streaming prefix: every write and read spans the region, the
+    # cache holds it, so every span op must take the device path. One
+    # device run first loads the torch ops it uses on the card (reported
+    # on its own), then the runs alternate, vectorized first
+    n = PREFIX_ELEMS
+    trace = [(op, 0, n) for _ in range(PREFIX_PASSES)
+             for op in ("write", "read", "flush")]
+    span_ops = 2 * PREFIX_PASSES
+    first = _replay("device", n, n * 8, trace, "lru")
+    runs = {"vectorized": [], "device": [first]}
+    for backend in ("vectorized", "device", "device", "vectorized"):
+        runs[backend].append(_replay(backend, n, n * 8, trace, "lru"))
+    for dev_run in runs["device"]:
+        _same_replay("prefix trace", runs["vectorized"][0], dev_run)
+        if dev_run["device_ops"] != span_ops or dev_run["declined_ops"]:
+            raise AssertionError(
+                f"prefix trace: {dev_run['device_ops']} of {span_ops} span "
+                f"ops on the device, {dev_run['declined_ops']} declined")
+    _same_replay("prefix trace", runs["vectorized"][0],
+                 runs["vectorized"][1])
+    emit({"phase": "device_prefix", "elements": n, "passes": PREFIX_PASSES,
+          "cache_bytes": n * 8, "replacement": "lru",
+          "vectorized_seconds": [r["seconds"] for r in runs["vectorized"]],
+          "device_first": _replay_line(first),
+          "device": [_replay_line(r) for r in runs["device"][1:]]})
+
+    # (b) the emulator benchmark's mixed trace under eviction pressure
+    trace = _emu_trace(EMU_ELEMS, EMU_OPS, EMU_SEED)
+    cache = int(EMU_ELEMS * 8 * EMU_CACHE_FRAC)
+    for replacement in ("lru", "fifo"):
+        vec = _replay("vectorized", EMU_ELEMS, cache, trace, replacement)
+        dev = _replay("device", EMU_ELEMS, cache, trace, replacement)
+        _same_replay(f"emulator trace {replacement}", vec, dev)
+        emit({"phase": "device_emu_trace", "elements": EMU_ELEMS,
+              "ops": EMU_OPS, "cache_bytes": cache,
+              "replacement": replacement,
+              "vectorized_seconds": vec["seconds"],
+              "device": _replay_line(dev)})
+
+    # (c) a batched sweep whose emulators run on the device backend, the
+    # runs alternating
+    kw = dict(strategies=STRATEGIES, plans=_torn_plans(), engine="fork",
+              workers=1, mode="batched")
+    lines = {"vectorized": [], "device": []}
+    cells = {}
+    for backend in ("vectorized", "device", "device", "vectorized"):
+        mm_kernel.launches = cv_kernel.launches = fa_kernel.launches = 0
+        batched.reset_profile()
+        t0 = time.perf_counter()
+        got = sweep([DEVICE_SWEEP_WORKLOAD],
+                    cfg=NVMConfig(cache_bytes=1024 * 1024, backend=backend),
+                    **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        prof = dict(batched.profile)
+        transfer = (prof["shared_upload_seconds"] + prof["upload_seconds"]
+                    + prof["download_seconds"])
+        host = seconds - transfer - prof["device_seconds"]
+        lines[backend].append({
+            "batched_seconds": seconds, "host_seconds": host,
+            "host_share": host / seconds,
+            "abft_matmul_launches": mm_kernel.launches,
+            "cache_op_calls": prof["cache_op_calls"],
+            "validity_calls": prof["validity_calls"]})
+        if mm_kernel.launches <= 0:
+            raise AssertionError(f"the batched sweep on {backend} never "
+                                 f"launched abft_matmul")
+        if backend in cells and [_cell(c) for c in cells[backend]] \
+                != [_cell(c) for c in got]:
+            raise AssertionError(f"two batched sweeps on {backend} differ")
+        cells[backend] = got
+    if [_cell(c) for c in cells["device"]] \
+            != [_cell(c) for c in cells["vectorized"]]:
+        raise AssertionError("the batched sweep on the device backend "
+                             "differs from the vectorized one")
+    if any("batched_fallback" in c.info for c in cells["device"]
+           if c.strategy == "adcc"):
+        raise AssertionError("an adcc cell fell back on the device backend")
+    emit({"phase": "device_sweep",
+          "workload": list(DEVICE_SWEEP_WORKLOAD),
+          "cells": len(cells["device"]), **lines})
+
+
 def _device_profile(fn) -> dict:
     """Kernel time on the card during ``fn()`` by torch.profiler, beside
     the host wall time around it (ending in a synchronize): the device's
@@ -930,6 +1352,10 @@ def main() -> None:
         phase_sweep(records)
     if "sharded" in want:
         phase_sharded()
+    if "kv" in want:
+        phase_kv()
+    if "device" in want:
+        phase_device()
     if "serve" in want:
         phase_serve(records)
     if want != list(PHASES):

@@ -13,8 +13,9 @@ Three layers:
   NVMStore        persistent image (survives ``crash()``) + traffic stats
   MemoryBackend   volatile write-back cache emulation over the store —
                   pluggable (repro_torch.core.backends): an exact per-entry
-                  ``reference`` oracle and a batched ``vectorized``
-                  default, with identical semantics
+                  ``reference`` oracle, a batched ``vectorized``
+                  default, and a torch ``device`` backend — all with
+                  identical semantics
   CrashEmulator   couples program "truth" arrays with backend+store;
                   provides ``crash()`` / ``recover()``, region
                   allocation, and the program-visible read/write/flush
@@ -96,9 +97,10 @@ class NVMConfig:
     # real set-associative cache inflicts on *hot* lines, which is what
     # leaves XSBench's counters stale-by-different-amounts in NVM (Fig. 10).
     replacement: str = "lru"
-    # emulation backend: "vectorized" (default) or "reference" (oracle)
-    # — byte/stat-identical; overridable via the REPRO_NVM_BACKEND
-    # environment variable.
+    # emulation backend: "vectorized" (default), "reference" (oracle), or
+    # "device" (forward pass on the torch device; raises without a card
+    # unless the CPU is selected) — all byte/stat-identical; overridable
+    # via the REPRO_NVM_BACKEND environment variable.
     backend: str = dataclasses.field(default_factory=_default_backend)
 
     @property

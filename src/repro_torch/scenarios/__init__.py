@@ -31,6 +31,13 @@ Module map:
               against the single-crash golden cell) and/or seeded
               media faults that silently poison the post-crash image
               (detection-coverage certification).
+  kv          KVWorkload — the beyond-paper persistent KV-serving
+              family: an NVM-backed store (A/B-versioned hash index +
+              append-only value-log extents) driven by seeded zipfian
+              get/put/delete streams (ETC/UDB profiles), with
+              algorithm-directed per-request persistence, durability /
+              atomicity auditing against the acknowledged prefix, and
+              the shadow_snapshot strategy as its natural baseline.
   costmodel   StepCostProfile + mechanism_step_seconds(): the single
               source for the paper's Figs. 4/8/13 modeled mechanism
               costs, and mechanism_cases() — the canonical 7-mechanism
@@ -104,6 +111,7 @@ from .strategies import (
     register_strategy,
     strategy_names,
 )
+from .kv import KV_PROFILES, KVProfile, KVWorkload  # registers "kv"
 from .driver import (
     AVG_STEP_JITTER_FLOOR,
     DEFAULT_SWEEP_PLANS,
@@ -129,6 +137,7 @@ __all__ = [
     "cg_step_profile", "mm_step_profile", "kv_step_profile",
     "xsbench_step_profile",
     "WORKLOADS", "Workload", "CGWorkload", "MMWorkload", "XSBenchWorkload",
+    "KVWorkload", "KVProfile", "KV_PROFILES",
     "RecoveryResult", "FinalReport", "make_workload", "register_workload",
     "STRATEGIES", "ConsistencyStrategy", "NativeStrategy", "AdccStrategy",
     "UndoLogStrategy", "CheckpointStrategy", "ShadowSnapshotStrategy",

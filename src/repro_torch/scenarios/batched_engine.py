@@ -34,8 +34,23 @@ already holds. So:
 Identity contract: a batched cell equals the corresponding measure cell
 on every field of :func:`~repro_torch.scenarios.driver.deterministic_cell_dict`
 (``state_certified`` is fork/measure-only and stays ``None`` here; wall
--clock fields are excluded as always). tests/test_torch_sweep.py and
-the card's smoke run enforce this cell-for-cell.
+-clock fields are excluded as always). tests/test_torch_sweep.py,
+tests/test_torch_kv.py and the card's smoke run enforce this
+cell-for-cell.
+
+The KV family evaluates analytically too: the request stream is a pure
+function of (seed, i), so the strategies that restore a wholesale
+committed state (none/checkpoint/shadow_snapshot/undo_log) reduce to
+arithmetic on the host oracle's per-prefix live maps, and the adcc
+policies replay root/commit-record validation plus the
+durability/atomicity audit from each cell's crash image, with the
+SplitMix64 row-checksum and value-word verification stacked over every
+claimed row of the batch into
+:func:`~repro_torch.core.backends.batched.kv_row_checksums` /
+:func:`~repro_torch.core.backends.batched.kv_value_match` calls (int64
+math — exact on device, so no certainty band; flagged-bad rows are
+still re-confirmed by the exact host code, and ``stats`` counts the
+verdicts that re-confirmation overturned, which must stay 0).
 
 Pairs the analytic evaluators do not cover — user-registered strategy
 or workload subclasses, or CG systems too large to densify on the dense
@@ -69,6 +84,9 @@ from ..core.invariants import (InvariantSet, OrthogonalityInvariant,
 from .crashplan import CrashPlan, CrashPoint
 from .driver import (AVG_STEP_JITTER_FLOOR, ScenarioResult, _finish,
                      _measure, _recovery_bookkeeping, classify_recovery)
+from .kv import (_META_W as _KV_META_W, KVWorkload,
+                 _mix_words as _kv_mix_words,
+                 _value_words as _kv_value_words)
 from .strategies import (AdccStrategy, CheckpointHddStrategy,
                          CheckpointNvmDramStrategy, CheckpointStrategy,
                          ConsistencyStrategy, NativeStrategy,
@@ -105,14 +123,17 @@ _MM_ATOL = 1e-6
 # them), ABFT chunks screened, how many of either fell inside the
 # certainty band and were re-checked by the exact host code, and (ABFT)
 # how many chunks went to the host loop body at all (band-borderline or
-# certainly failing)
+# certainly failing); KV index rows and meta roots that the device math
+# flagged bad and the exact host code then found good (exact integer
+# math on both sides: anything but 0 is a fault of the device math)
 stats: Dict[str, float] = {}
 
 
 def reset_stats() -> None:
     stats.clear()
     stats.update(cg_waves=0, cg_candidates=0, cg_band_rechecks=0,
-                 cg_wave_seconds=0.0, mm_chunks=0, mm_band_rechecks=0, mm_host_checks=0)
+                 cg_wave_seconds=0.0, mm_chunks=0, mm_band_rechecks=0,
+                 mm_host_checks=0, kv_overturned=0)
 
 
 reset_stats()
@@ -600,6 +621,288 @@ class _XSBenchEvaluator:
         return out
 
 
+# ---------------------------------------------------------------------------
+# KV-family evaluators
+# ---------------------------------------------------------------------------
+
+class _KVStateEvaluator:
+    """Wrap a state-restoring evaluator (scratch / checkpoint / shadow /
+    undo log) with the KV durability/atomicity audit, computed from the
+    host request oracle instead of the live recovered store.
+
+    Every strategy on this route restores a wholesale committed state,
+    so the store the audit would inspect is byte-for-byte the clean
+    end-of-step state of ``resume_step - 1``: its semantic map is the
+    oracle's live map at that prefix with every integrity verdict True,
+    no reader-visible corrupt rows, and an intact meta root. The audit
+    therefore reduces to dictionary arithmetic on the oracle maps — and
+    ``resume_step <= acked_requests`` always holds (strategy persistence
+    runs in ``after_step``, torn snapshots are captured before it), so
+    the in-flight atomicity scan range is empty and atomicity is 0."""
+
+    def __init__(self, wl: KVWorkload, base):
+        self._maps = wl._oracle()[0]
+        self._base = base
+
+    def recover_batch(self, cells: List[_BatchedCell]) -> List[RecoveryResult]:
+        recs = self._base.recover_batch(cells)
+        for c, rec in zip(cells, recs):
+            acked_n = c.point.step + (0 if c.point.torn else 1)
+            acked = self._maps[acked_n]
+            vis = self._maps[rec.resume_step]
+            dur = sum(1 for key, (seq_o, _nw) in acked.items()
+                      if key not in vis or vis[key][0] < seq_o)
+            dur += sum(1 for key in vis if key not in acked)
+            rec.info["acked_requests"] = acked_n
+            rec.info["durability_violations"] = dur
+            rec.info["atomicity_violations"] = 0
+        return recs
+
+
+class _KVAdccEvaluator:
+    """adcc + KV: replay root/commit-record validation and the
+    durability/atomicity audit from each cell's crash image (post-crash
+    truth is reloaded from the image, so the image serves reads of
+    either side). The dominant cost — per-row SplitMix64 checksum
+    chains and value-word recomputation, O(rows x words) integer
+    hashing — runs as one stacked device call over every claimed row
+    of the whole cell batch
+    (:func:`~repro_torch.core.backends.batched.kv_row_checksums` /
+    :func:`~repro_torch.core.backends.batched.kv_value_match`). The device
+    pipeline computes the same 63-bit integer function exactly, so
+    there is no certainty band; per the established discipline any row
+    the device flags bad is still re-confirmed by the exact host
+    ``_row_ok`` port before it can reject a root or count a violation,
+    and ``stats["kv_overturned"]`` counts the flags it overturned."""
+
+    def __init__(self, wl: KVWorkload):
+        self._wl = wl
+        self._maps = wl._oracle()[0]
+        self._read_bw = wl.emu.cfg.read_bw
+
+    def _host_row_ok(self, row: np.ndarray,
+                     vlogs: List[np.ndarray]) -> bool:
+        """Exact image-side port of ``KVWorkload._row_ok``."""
+        wl = self._wl
+        if int(row[7]) != _kv_mix_words(row[:7]):
+            return False
+        nw = int(row[3])
+        if nw <= 0:
+            return True
+        key, seq, goff = int(row[0]) - 1, int(row[1]), int(row[2])
+        e, off = divmod(goff, wl.extent_words)
+        if not (0 <= e < wl.n_extents and 0 <= off
+                and off + nw <= wl.extent_words):
+            return False
+        got = vlogs[e][off:off + nw]
+        return bool(np.array_equal(got, _kv_value_words(key, seq, nw)))
+
+    def _audit(self, rec: RecoveryResult, acked_n: int, idx: np.ndarray,
+               rows_ok: Dict[int, bool], meta: np.ndarray,
+               meta_ok: Sequence[bool]) -> None:
+        """``KVWorkload.audit_recovery`` on an image-side store view:
+        ``rows_ok`` maps reader-visible claimed row -> integrity verdict
+        (rows a validate recovery dropped are simply absent, matching
+        the zeroed live rows the real audit walks)."""
+        wl = self._wl
+        visible: Dict[int, Tuple[int, bool]] = {}   # key -> (seq, ok)
+        corrupt = 0
+        for s in range(wl.n_slots):
+            best = None
+            for v in (0, 1):
+                r = 2 * s + v
+                if r not in rows_ok:
+                    continue
+                if best is None or int(idx[r, 1]) > int(idx[best, 1]):
+                    best = r
+            if best is None:
+                continue
+            if not rows_ok[best]:
+                corrupt += 1
+            if int(idx[best, 3]) > 0:
+                visible[int(idx[best, 0]) - 1] = (int(idx[best, 1]),
+                                                  rows_ok[best])
+        atom = corrupt
+        if not any(int(meta[v, 1]) == rec.resume_step and meta_ok[v]
+                   for v in (0, 1)):
+            atom += 1
+        for j in range(acked_n, rec.resume_step):
+            op, key, _nw = wl._request(j)
+            if op == "get":
+                continue
+            ent = visible.get(key)
+            if op == "put":
+                if ent is None or ent[0] != j + 1 or not ent[1]:
+                    atom += 1
+            elif ent is not None and ent[0] < j + 1:
+                atom += 1
+        acked = self._maps[acked_n]
+        dur = 0
+        for key, (seq_o, _nw) in acked.items():
+            ent = visible.get(key)
+            if (ent is None or ent[0] < seq_o
+                    or (ent[0] == seq_o and not ent[1])):
+                dur += 1
+        for key, ent in visible.items():
+            if key not in acked and ent[1] and ent[0] <= acked_n:
+                dur += 1
+        rec.info["acked_requests"] = acked_n
+        rec.info["durability_violations"] = dur
+        rec.info["atomicity_violations"] = atom
+
+    def recover_batch(self, cells: List[_BatchedCell]) -> List[RecoveryResult]:
+        wl = self._wl
+        n_rows = 2 * wl.n_slots
+        ew = wl.extent_words
+        prepared = []
+        idx_blocks: List[np.ndarray] = []
+        meta_blocks: List[np.ndarray] = []
+        bounds_bad: List[np.ndarray] = []
+        val_pos: List[int] = []     # flat claimed-row position of each item
+        val_keys: List[int] = []
+        val_seqs: List[int] = []
+        val_nws: List[int] = []
+        val_spans: List[np.ndarray] = []
+        base = 0
+        for c in cells:
+            ci = c.crash_image()
+            meta = np.asarray(ci.region("kv.meta")).reshape(2, _KV_META_W)
+            idx = np.asarray(ci.region("kv.index")).reshape(n_rows, 8)
+            vlogs = [np.asarray(ci.region(f"kv.vlog{e}"))
+                     for e in range(wl.n_extents)]
+            claimed = np.flatnonzero(idx[:, 0] != 0)
+            rows = idx[claimed]
+            bad = np.zeros(len(claimed), dtype=bool)
+            for p in range(len(claimed)):
+                nw = int(rows[p, 3])
+                if nw <= 0:
+                    continue
+                e, off = divmod(int(rows[p, 2]), ew)
+                if not (0 <= e < wl.n_extents and off + nw <= ew):
+                    bad[p] = True       # torn (goff, nwords): row invalid
+                    continue
+                val_pos.append(base + p)
+                val_keys.append(int(rows[p, 0]) - 1)
+                val_seqs.append(int(rows[p, 1]))
+                val_nws.append(nw)
+                val_spans.append(vlogs[e][off:off + nw])
+            idx_blocks.append(rows)
+            meta_blocks.append(meta)
+            bounds_bad.append(bad)
+            prepared.append((c, meta, idx, vlogs, claimed, base))
+            base += len(claimed)
+
+        # one stacked call per verification kind across the whole batch
+        if base:
+            all_rows = np.vstack(idx_blocks)
+            row_ok_flat = (device.kv_row_checksums(all_rows[:, :7])
+                           == all_rows[:, 7])
+            row_ok_flat &= ~np.concatenate(bounds_bad)
+        else:
+            row_ok_flat = np.empty(0, dtype=bool)
+        all_meta = np.vstack(meta_blocks)
+        meta_ck = (device.kv_row_checksums(all_meta[:, :_KV_META_W - 1])
+                   == all_meta[:, _KV_META_W - 1])
+        if val_pos:
+            wmax = max(val_nws)
+            got = np.zeros((len(val_pos), wmax), dtype=np.int64)
+            for i, span in enumerate(val_spans):
+                got[i, :len(span)] = span
+            vok = device.kv_value_match(
+                np.asarray(val_keys, dtype=np.int64),
+                np.asarray(val_seqs, dtype=np.int64), got,
+                np.asarray(val_nws, dtype=np.int64))
+            row_ok_flat[np.asarray(val_pos)] &= vok
+
+        out = []
+        for i, (c, meta, idx, vlogs, claimed, b) in enumerate(prepared):
+            # host re-confirmation of every device-flagged-bad row/root
+            rows_ok: Dict[int, bool] = {}
+            for j, r in enumerate(claimed):
+                ok = bool(row_ok_flat[b + j])
+                if not ok:
+                    ok = self._host_row_ok(idx[r], vlogs)
+                    stats["kv_overturned"] += ok
+                rows_ok[int(r)] = ok
+            meta_ok = []
+            for v in (0, 1):
+                ok = bool(meta_ck[2 * i + v])
+                if not ok:
+                    ok = (int(meta[v, -1]) == _kv_mix_words(meta[v, :-1]))
+                    stats["kv_overturned"] += ok
+                meta_ok.append(ok)
+            out.append(self._eval_cell(c, meta, meta_ok, idx, rows_ok))
+        return out
+
+    def _eval_cell(self, c: _BatchedCell, meta: np.ndarray,
+                   meta_ok: Sequence[bool], idx: np.ndarray,
+                   rows_ok: Dict[int, bool]) -> RecoveryResult:
+        """Exact replay of ``KVWorkload.adcc_recover`` + the audit on the
+        resulting store view."""
+        wl = self._wl
+        crash = c.point.step
+        acked_n = crash + (0 if c.point.torn else 1)
+        raw = max(int(meta[v, 1]) for v in (0, 1))
+        if wl.policy == "blind":
+            rec = RecoveryResult(
+                resume_step=raw, restart_point=raw - 1,
+                detect_seconds=meta.nbytes / self._read_bw,
+                redo_steps=crash + 1 - raw, from_scratch=raw == 0,
+                info={"policy": "blind", "torn_flagged": False})
+            self._audit(rec, acked_n, idx, rows_ok, meta, meta_ok)
+            return rec
+        read_bytes = meta.nbytes + idx.nbytes
+        for r in rows_ok:
+            read_bytes += 8 * max(0, int(idx[r, 3]))
+        detect = read_bytes / self._read_bw
+        valid = [v for v in (0, 1) if meta_ok[v]]
+        resume = None
+        for cc, v in sorted(((int(meta[v, 1]), v) for v in valid),
+                            reverse=True):
+            ok_c = all(ok or int(idx[r, 1]) != cc
+                       for r, ok in rows_ok.items())
+            fp = int(meta[v, 7])
+            if ok_c and fp:
+                r = fp - 1
+                ok_c = (0 <= r < 2 * wl.n_slots
+                        and rows_ok.get(r, False)
+                        and int(idx[r, 1]) == cc
+                        and int(idx[r, 7]) == int(meta[v, 8]))
+            if ok_c:
+                resume = cc
+                break
+        if resume is None:
+            rec = RecoveryResult(
+                resume_step=0, restart_point=-1, detect_seconds=detect,
+                redo_steps=crash + 1, steps_lost=crash + 1,
+                from_scratch=True,
+                info={"policy": "validate", "torn_flagged": True,
+                      "slots_dropped": 0})
+            # the real path resets the store before the audit: empty
+            # semantic map, intact committed=0 root => every acked live
+            # key is a durability violation and nothing else counts
+            rec.info["acked_requests"] = acked_n
+            rec.info["durability_violations"] = len(self._maps[acked_n])
+            rec.info["atomicity_violations"] = 0
+            return rec
+        dropped = 0
+        kept: Dict[int, bool] = {}
+        for r, ok in rows_ok.items():
+            if not ok or int(idx[r, 1]) > resume:
+                dropped += 1
+            else:
+                kept[r] = True
+        rec = RecoveryResult(
+            resume_step=resume, restart_point=resume - 1,
+            detect_seconds=detect, redo_steps=crash + 1 - resume,
+            from_scratch=resume == 0,
+            info={"policy": "validate",
+                  "torn_flagged": dropped > 0 or resume < raw,
+                  "slots_dropped": dropped})
+        self._audit(rec, acked_n, idx, kept, meta, meta_ok)
+        return rec
+
+
 _SCRATCH_TYPES = (ConsistencyStrategy, NativeStrategy)
 _CKPT_TYPES = (CheckpointStrategy, CheckpointHddStrategy,
                CheckpointNvmDramStrategy)
@@ -615,6 +918,21 @@ def _make_evaluator(wl: Workload, strat: ConsistencyStrategy):
     subclass may override ``recover()``, and guessing wrong would
     silently break the batched==measure identity."""
     t = type(strat)
+    if type(wl) is KVWorkload:
+        # the KV audit inspects the recovered store; the evaluators
+        # reproduce it from the request oracle (state-restoring
+        # strategies) or from the crash image (adcc)
+        if t in _SCRATCH_TYPES:
+            return _KVStateEvaluator(wl, _ScratchEvaluator()), None
+        if t in _CKPT_TYPES:
+            return _KVStateEvaluator(wl, _CheckpointEvaluator()), None
+        if t is ShadowSnapshotStrategy:
+            return _KVStateEvaluator(wl, _ShadowSnapshotEvaluator()), None
+        if t is UndoLogStrategy:
+            return _KVStateEvaluator(wl, _UndoLogEvaluator()), None
+        if t is AdccStrategy:
+            return _KVAdccEvaluator(wl), None
+        return None, f"unsupported-strategy:{t.__name__}"
     if type(wl).audit_recovery is not Workload.audit_recovery:
         # an unknown auditing workload inspects the live recovered
         # state; analytic evaluators never run recovery, so its info

@@ -1036,8 +1036,10 @@ def sweep(workloads: Sequence = ("cg", "mm", "xsbench"),
         # children run torch math even on the CPU, and a forked child
         # does not inherit the worker threads of the parent's intra-op
         # pool either (its first parallel reduction would wait for them
-        # forever), so batched shards always spawn.
-        if mode == "batched" or cuda_runtime_live():
+        # forever), so batched shards always spawn, and so does every
+        # shard whose emulator runs its forward pass on the torch device.
+        backend = (cfg if cfg is not None else NVMConfig()).backend
+        if mode == "batched" or backend == "device" or cuda_runtime_live():
             start = "spawn"
         selected = selected_device()
         worker_fn = functools.partial(

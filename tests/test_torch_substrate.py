@@ -111,9 +111,11 @@ def test_randomized_trace_identical(seed, backend, replacement):
 
 
 def test_unknown_backend_names_the_valid_ones():
-    with pytest.raises(ValueError, match="reference.*vectorized"):
-        port_nvm.CrashEmulator(port_nvm.NVMConfig(backend="device"))
-    assert sorted(port_backends.BACKENDS) == ["reference", "vectorized"]
+    with pytest.raises(ValueError, match="device.*reference.*vectorized"):
+        port_nvm.CrashEmulator(port_nvm.NVMConfig(backend="gpu"))
+    assert sorted(port_backends.BACKENDS) \
+        == sorted(ref_backends.BACKENDS) == ["device", "reference",
+                                              "vectorized"]
 
 
 # ---------------------------------------------------------------------------

@@ -269,6 +269,8 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.algorithms, repro_torch.scenarios.carry\n"
         "import repro_torch.scenarios.batched_engine\n"
         "import repro_torch.core.backends.batched\n"
+        "import repro_torch.core.backends.device\n"
+        "import repro_torch.scenarios.kv\n"
         "import repro_torch.kernels.abft_matmul.ops\n"
         "import repro_torch.kernels.checksum_verify.ops\n"
         "import repro_torch.kernels.abft_matmul.ref\n"
