@@ -5,6 +5,7 @@ with itself on the card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --phases card,build,kernels   # some, in order, to debug
+    python3 chip_smoke.py --phases card,train           # the trainer alone
 
 Phases, each printing one JSON line:
 
@@ -49,6 +50,19 @@ Phases, each printing one JSON line:
            attention beside it, 32 greedy KV-cache decode steps, and a
            teacher-forced decode of 16 prompt tokens that must give the
            plain forward's logits; prints tokens per second and peak memory
+  train    the ADCC trainer (``ADCCTrainer.run``) at llama3-8b's full width
+           with depth cut to 2 of 32 layers (1 where the disk cannot hold
+           two slots), random weights from a seeded generator on the card,
+           AdamW, remat "dots", batch 2 x 4096, a slot every 2 steps, 2
+           slots, each workdir in a temporary directory removed after use:
+           6 steps without fault tolerance; 4 ADCC steps, the newest slot
+           torn, and a new trainer that must reject it, verify the step-1
+           slot, replay steps 2-5 and end bitwise equal to the first run;
+           every ledger record within the linearity chain; 6 steps of the
+           synchronous-checkpoint baseline. Prints per mode the step
+           times with and without a slot, the ledger appends, the host
+           copies, the writer's and the recovery's seconds, peak memory,
+           a profiled step and the cost of deterministic algorithms
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. Without a CUDA card the script exits at once with code 2.
@@ -60,14 +74,23 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import re
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
-import torch
+# the train phase runs with deterministic algorithms, which need cuBLAS's
+# fixed workspace in the environment before the process's first cuBLAS
+# call (repro_torch/launch/steps.py)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: torch.cuda.is_available() is False; this "
@@ -90,14 +113,19 @@ from repro_torch.kernels.checksum_verify import kernel as cv_kernel  # noqa: E40
 from repro_torch.kernels.checksum_verify import ops as cv_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.core.acc_state import ChecksumLedger  # noqa: E402
 from repro_torch.launch.specs import make_batch  # noqa: E402
+from repro_torch.launch.steps import tree_checksums  # noqa: E402
+from repro_torch.launch.train import ADCCTrainer  # noqa: E402
+from repro_torch.models.carry import opt_tree, reference_tree  # noqa: E402
 from repro_torch.models import build_model, get_config  # noqa: E402
 from repro_torch.scenarios import (CrashPlan, TornSpec,  # noqa: E402
                                    deterministic_cell_dict, sweep)
 from repro_torch.scenarios import batched_engine, driver  # noqa: E402
 
 PHASES = ("card", "build", "kernels", "sweep", "sharded", "kv", "device",
-          "serve")
+          "serve", "train")
 
 # tensor-core instructions counted in each kernel's SASS, and the kernels
 # that must have them: library -> (name in the kernel's symbol, kinds)
@@ -129,6 +157,16 @@ SERVE_SEED = 12
 # 2.5 x the readings, and the argmax share must stay above 90 %.
 SERVE_ATOL = 0.05
 SERVE_ARGMAX_FLOOR = 0.9
+
+# the train phase: the ADCC trainer at llama3-8b's full width with depth
+# cut to 2 of 32 layers (1 where the disk cannot hold two slots of 2),
+# AdamW, remat "dots", batch 2 x the train_4k sequence length
+TRAIN_ARCH = "llama3-8b"
+TRAIN_LAYERS = (2, 1)
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096
+TRAIN_STEPS, TRAIN_CRASH_RUN = 6, 4
+TRAIN_SLOT_EVERY, TRAIN_SLOTS = 2, 2
+TRAIN_SEED = 15
 
 # flash_attention against its plain version: bf16 two bf16 ulps of the
 # value (rtol 1.6e-2, atol 1e-5), f32 1e-5; the reasons stand beside the
@@ -1329,6 +1367,236 @@ def phase_serve(records: list) -> None:
     torch.cuda.empty_cache()
 
 
+def _slot_bytes(cfg) -> int:
+    """Bytes of one AdamW slot: parameters, m and v in float32."""
+    return 3 * 4 * cfg.param_count() + 4
+
+
+def _train_cfg(free_bytes: int):
+    """llama3-8b at full width, depth cut to the largest of TRAIN_LAYERS
+    whose two slots fit the free disk with a tenth to spare."""
+    full = get_config(TRAIN_ARCH)
+    for n in TRAIN_LAYERS:
+        cfg = dataclasses.replace(full, n_layers=n)
+        if 2.2 * _slot_bytes(cfg) <= free_bytes:
+            return cfg
+    raise AssertionError(f"{free_bytes / 1e9:.1f} GB free for the slots: "
+                         f"not enough for two of {TRAIN_LAYERS[-1]} layer")
+
+
+def _chain_ratios(records) -> list:
+    """|cur - (prev + upd)| / (CHAIN_RTOL * max(|cur|, 1)) for every record
+    after the first, against the latest record before it in the file that
+    holds the step before (a resumed run appends its replayed steps after
+    the steps it abandoned), over all leaves: 1 is the chain's bound."""
+    out, last = [], {}
+    for rec in records:
+        prev = last.get(rec.step - 1)
+        if prev is not None:
+            cur = np.asarray(rec.cks_params, np.float64)
+            err = np.abs(cur - (np.asarray(prev.cks_params, np.float64)
+                                + np.asarray(rec.cks_updates, np.float64)))
+            scale = ChecksumLedger.CHAIN_RTOL * np.maximum(np.abs(cur), 1.0)
+            out.append(float(np.max(err / scale)))
+        last[rec.step] = rec
+    return out
+
+
+def _median(xs) -> float:
+    return float(statistics.median(xs)) if xs else float("nan")
+
+
+def _run_trainer(cfg, tcfg, workdir, mode, steps, **kw) -> tuple:
+    """(trainer, result, peak device bytes) of one ``run(steps)``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = ADCCTrainer(cfg, tcfg, workdir, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     slot_every=TRAIN_SLOT_EVERY, n_slots=TRAIN_SLOTS,
+                     mode=mode, **kw)
+    res = tr.run(steps, log_every=0)
+    torch.cuda.synchronize()
+    if not all(np.isfinite(res.losses)):
+        raise AssertionError(f"{mode}: non-finite losses {res.losses}")
+    return tr, res, torch.cuda.max_memory_allocated()
+
+
+def _mode_line(tr, res, peak, first_step: int) -> dict:
+    """Step times split by slot steps (each trainer's first step left out:
+    it includes set-up), and the trainer's own timings."""
+    plain, slot = [], []
+    for t, sec in zip(range(first_step, first_step + len(res.step_seconds)),
+                      res.step_seconds):
+        if t == first_step:
+            continue
+        (slot if (t + 1) % TRAIN_SLOT_EVERY == 0 else plain).append(sec)
+    return {"steps": len(res.step_seconds), "step_seconds": res.step_seconds,
+            "median_step_s": _median(plain + slot),
+            "median_plain_step_s": _median(plain),
+            "median_slot_step_s": _median(slot),
+            "ledger_append_ms": [1e3 * x for x in tr.timings["ledger_append"]],
+            "host_copy_s": tr.timings["host_copy"],
+            "sync_slot_write_s": tr.timings["slot_write"],
+            "async_writer_s_per_slot": (tr.writer.write_seconds
+                                        if tr.writer is not None else []),
+            "recover_read_s": tr.timings["recover_read"],
+            "recover_verify_s": tr.timings["recover_verify"],
+            "peak_memory_gb": peak / 1e9}
+
+
+def phase_train() -> None:
+    """The ADCC trainer through its entry point at llama3-8b's full width:
+    uninterrupted, crashed-and-recovered from a torn slot, and the
+    synchronous-checkpoint baseline, held bitwise against each other."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        _phase_train(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase_train(root: str) -> None:
+    free = shutil.disk_usage(root).free
+    emit({"phase": "train_disk", "dir_free_gb": free / 1e9})
+    cfg = _train_cfg(free)
+    tcfg = TrainConfig(optimizer="adamw", remat="dots", seed=TRAIN_SEED)
+    n_params = cfg.param_count()
+    mm_kernel.launches = cv_kernel.launches = fa_kernel.launches = 0
+    lines = {}
+
+    # 1. uninterrupted, no fault tolerance
+    tr, res, peak = _run_trainer(cfg, tcfg, os.path.join(root, "none"),
+                                 "none", TRAIN_STEPS)
+    lines["none"] = _mode_line(tr, res, peak, 0)
+    final_none = {n: p.clone() for n, p in tr._final_params.named_parameters()}
+    losses_none = res.losses
+    # where a step's time goes: the forward and backward pass alone, a
+    # whole step, a profiled step, and the ADCC checksums of its state
+    batch = {k: torch.from_numpy(v).to(tr.device)
+             for k, v in tr.pipeline.batch_at(TRAIN_STEPS).items()}
+    lm, opt = tr._final_params, tr._final_opt
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.info["value_and_grad"](lm, batch)
+    torch.cuda.synchronize()
+    fwd_bwd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm, opt, _, _, _ = tr.step_fn(lm, opt, {}, batch, None)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    profile = _device_profile(
+        lambda: tr.step_fn(lm, opt, {}, batch, None))
+    trees = (reference_tree(cfg, dict(lm.named_parameters())),
+             opt_tree(cfg, opt))
+    cks_ms = time_ms(lambda: [tree_checksums(t) for t in trees], 3)
+    lines["none"].update({"fwd_bwd_s": fwd_bwd_s, "step_s": step_s,
+                          "optimizer_and_checksums_s": step_s - fwd_bwd_s,
+                          "tree_checksums_params_opt_ms": cks_ms,
+                          "profile_one_step": profile})
+    del tr, lm, opt, batch, trees
+
+    # the same run without deterministic algorithms: their cost
+    tr, res, _ = _run_trainer(cfg, tcfg, os.path.join(root, "nondet"),
+                              "none", TRAIN_STEPS, deterministic=False)
+    lines["none_nondeterministic"] = {
+        "median_step_s": _median(res.step_seconds[1:]),
+        "step_seconds": res.step_seconds,
+        "final_params_bitwise_equal": all(
+            torch.equal(p, final_none[n])
+            for n, p in tr._final_params.named_parameters())}
+    del tr
+
+    # 2. ADCC to step 3, tear the newest slot, recover and replay
+    wd = os.path.join(root, "adcc")
+    tr, res, peak = _run_trainer(cfg, tcfg, wd, "adcc", TRAIN_CRASH_RUN)
+    first = _mode_line(tr, res, peak, 0)
+    if res.losses != losses_none[:TRAIN_CRASH_RUN]:
+        raise AssertionError(f"adcc losses {res.losses} differ from the "
+                             f"uninterrupted run's {losses_none}")
+    recs = tr.ledger.validated_records()
+    if [r.step for r in recs] != list(range(TRAIN_CRASH_RUN)):
+        raise AssertionError(f"ledger holds {[r.step for r in recs]}")
+    slots = tr.store.slots_by_recency()
+    if slots != [(1, 3), (0, 1)]:
+        raise AssertionError(f"slots {slots}, expected steps 3 and 1")
+    d = tr.store.slot_dir(slots[0][0])
+    leaf = sorted(f for f in os.listdir(d) if f.endswith(".npy"))[0]
+    arr = np.load(os.path.join(d, leaf))
+    np.save(os.path.join(d, leaf), arr + 1000.0)
+    del tr, arr
+    tr, res, peak = _run_trainer(cfg, tcfg, wd, "adcc", TRAIN_STEPS)
+    second = _mode_line(tr, res, peak, 2)
+    checks = tr.recovery_checks
+    if res.resumed_from != 1 or len(checks) != 2 \
+            or checks[0][1] != 3 or checks[0][2] == 0 \
+            or checks[1][1:] != (1, 0) \
+            or res.recovery_report != f"slot {checks[1][0]} @ step 1 verified":
+        raise AssertionError(f"recovery: resumed_from {res.resumed_from}, "
+                             f"checks (slot, step, bad leaves) {checks}, "
+                             f"report {res.recovery_report!r}")
+    if res.losses != losses_none[2:]:
+        raise AssertionError(f"replayed losses {res.losses} differ from "
+                             f"{losses_none[2:]}")
+    max_diff = max(float((p - final_none[n]).abs().max())
+                   for n, p in tr._final_params.named_parameters())
+    if max_diff != 0.0:
+        raise AssertionError(f"resumed parameters differ from the "
+                             f"uninterrupted run's by {max_diff}")
+    # 3. every ledger record passes the chain
+    all_recs = tr.ledger.read_all()
+    ratios = _chain_ratios(all_recs)
+    if len(ratios) != len(all_recs) - 1 or max(ratios) >= 1.0:
+        raise AssertionError(f"ledger chain ratios {ratios}")
+    lines["adcc"] = {"crash_run": first, "resumed_run": second}
+    del tr, final_none
+    shutil.rmtree(wd, ignore_errors=True)
+
+    # 4. the synchronous-checkpoint baseline
+    tr, res, peak = _run_trainer(cfg, tcfg, os.path.join(root, "sync"),
+                                 "sync", TRAIN_STEPS)
+    lines["sync"] = _mode_line(tr, res, peak, 0)
+    if res.losses != losses_none:
+        raise AssertionError(f"sync losses {res.losses} differ")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = {"abft_matmul": mm_kernel.launches,
+                "tile_sums": cv_kernel.launches,
+                "flash_attention": fa_kernel.launches}
+    if any(launches.values()):
+        raise AssertionError(f"training launched {launches}: its loss runs "
+                             f"plain attention, as the reference's")
+    none_plain = lines["none"]["median_step_s"]
+    adcc_steps = (first["step_seconds"][1:]
+                  + second["step_seconds"][1:])
+    emit({"phase": "train", "arch": TRAIN_ARCH,
+          "depth_cut": f"{cfg.n_layers} of {get_config(TRAIN_ARCH).n_layers} "
+                       f"layers", "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "params": n_params, "slot_gb": _slot_bytes(cfg) / 1e9,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "optimizer": tcfg.optimizer,
+          "remat": tcfg.remat, "slot_every": TRAIN_SLOT_EVERY,
+          "n_slots": TRAIN_SLOTS, "losses": losses_none,
+          "recovery_checks": [list(c) for c in checks],
+          "resumed_from": 1, "replayed_steps": [2, 3, 4, 5],
+          "resumed_vs_uninterrupted_max_abs_diff": max_diff,
+          "ledger_records": len(all_recs),
+          "chain_worst_ratio": max(ratios),
+          "slot_bad_leaves_accepted": checks[1][2],
+          "adcc_overhead_share": {
+              "plain_step": second["median_plain_step_s"] / none_plain - 1,
+              "slot_step": _median(first["step_seconds"][1::2]
+                                   + second["step_seconds"][1::2])
+              / none_plain - 1,
+              "all_steps": _median(adcc_steps) / none_plain - 1},
+          "sync_overhead_share_slot_step":
+              lines["sync"]["median_slot_step_s"] / none_plain - 1,
+          "determinism_cost_share":
+              none_plain / lines["none_nondeterministic"]["median_step_s"] - 1,
+          "launches": launches, **lines})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1358,6 +1626,8 @@ def main() -> None:
         phase_device()
     if "serve" in want:
         phase_serve(records)
+    if "train" in want:
+        phase_train()
     if want != list(PHASES):
         emit({"partial": True, "kernels": records})
         return

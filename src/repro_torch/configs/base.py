@@ -3,8 +3,8 @@
 A copy of ``ModelConfig``, ``ShapeConfig`` and ``SHAPES`` from the JAX
 package's ``configs/base.py``, kept field for field so that both packages
 read one configuration the same way: ``reduced()`` (the CPU smoke-test
-variant), ``padded_vocab`` and ``param_count`` are unchanged. The mesh
-and training configs come with the training slice.
+variant), ``padded_vocab`` and ``param_count`` are unchanged, and so are
+``MeshConfig`` and ``TrainConfig``.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["ModelConfig", "ShapeConfig", "SHAPES"]
+__all__ = ["ModelConfig", "ShapeConfig", "MeshConfig", "TrainConfig", "SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,3 +165,32 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        out = 1
+        for s in self.shape:
+            out *= s
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    optimizer: str = "adamw"     # adamw | adafactor
+    remat: str = "dots"          # none | dots | full
+    fsdp: bool = True            # ZeRO-shard params/opt over the data axis
+    grad_compression: str = "none"  # none | int8
+    seed: int = 0

@@ -3,7 +3,7 @@
 The JAX package's ``launch/specs.py::make_batch`` for the dense family,
 drawn from an explicit ``torch.Generator`` on the generator's device.
 The audio and vlm branches and the dry-run stand-ins come with their
-families (ROADMAP A10b).
+families (ROADMAP A10b.6).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int,
     """{"tokens", "labels"}: (batch, seq) int32, uniform over the vocab."""
     if cfg.family != "dense":
         raise NotImplementedError(f"make_batch for family {cfg.family!r} is "
-                                  f"not ported yet (ROADMAP A10b)")
+                                  f"not ported yet (ROADMAP A10b.6)")
     kw = dict(generator=generator, device=generator.device,
               dtype=torch.int32)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), **kw)

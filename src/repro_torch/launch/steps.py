@@ -1,0 +1,234 @@
+"""Train-step and serve-step builders of the port.
+
+The JAX package's ``launch/steps.py`` on one card:
+
+  train_step(params, opt_state, err_state, batch, generator) ->
+      (params, opt_state, err_state, metrics, checksums)
+
+``checksums`` is the ADCC hook: one f32 scalar per leaf of the
+reference's trees (``params``, ``opt``, ``updates``), the sum of the new
+state and of the step's applied update. Optimizer updates are additive,
+so the ledger obeys ``cks_params[t] == cks_params[t-1] + cks_updates[t]``
+(core/acc_state.py). A stacked layer leaf's entry is the sum of the
+port's per-layer sums.
+
+As in the reference, every float32 weight of two or more dimensions is
+cast to the compute type *once*, before the forward pass, and the
+gradient is taken with respect to that copy; 1-D weights (norms) stay
+float32. The embedding's gather backward and, for tied tables, the sum
+of the gather and head gradients therefore accumulate in the compute
+type before the cast back, as they do in the reference. The copy is a
+second LM whose bf16 parameters are refilled every step.
+
+With ``deterministic`` (the default) the step runs under
+``torch.use_deterministic_algorithms(True)``: on CUDA the embedding and
+cross-entropy backward passes (``index_put_`` with accumulation) take
+their sorted, atomic-free paths, and cuBLAS must be given a fixed
+workspace (``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before its first
+call) or torch raises. That is what makes a replay after recovery
+bitwise equal to an uninterrupted run. The setting is restored after
+the step; torch's filling of uninitialised memory is kept off, since
+the step reads none.
+
+Sharding (``rules``, ``build_opt_shardings``) comes with ROADMAP A10b.7.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+from typing import Dict, Iterator
+
+import torch
+from torch import nn
+
+from ..configs.base import TrainConfig
+from ..core.acc_state import leaf_checksum
+from ..models import layers as L
+from ..models.carry import opt_tree, reference_paths, reference_tree, tree_items
+from ..models.lm import LM, init_cache
+from ..models.registry import ModelApi
+from ..optim import compress_decompress, make_optimizer
+
+__all__ = ["build_train_step", "build_serve_step", "tree_checksums",
+           "build_opt_shardings"]
+
+_SHARDING = "sharding is not ported yet (ROADMAP A10b.7): the port runs on one card"
+
+
+def tree_checksums(tree):
+    """Per-leaf scalar checksums (f32 sums) of a nested dict / NamedTuple
+    of tensors, same structure; a list (one stacked leaf's layers) gives
+    the sum of its layers' sums. Linear in the leaf, hence incrementally
+    maintainable across additive updates."""
+    if isinstance(tree, dict):
+        return {k: tree_checksums(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_checksums(v) for v in tree))
+    return leaf_checksum(tree)
+
+
+def build_opt_shardings(*args, **kwargs):
+    raise NotImplementedError(f"build_opt_shardings: {_SHARDING}")
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool) -> Iterator[None]:
+    """``torch.use_deterministic_algorithms(on)`` for the enclosed code,
+    with torch's filling of uninitialised memory off; both restored."""
+    det = torch.utils.deterministic
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(on)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        det.fill_uninitialized_memory = prev[2]
+
+
+def _compute_copy(lm: LM) -> LM:
+    """An LM beside ``lm`` whose float32 weights of two or more
+    dimensions are in the compute type, every parameter a leaf that
+    requires grad. Values are filled by the step."""
+    cfg = lm.cfg
+    cdt = L.dtype_of(cfg.compute_dtype)
+    out = LM(cfg, device="meta")
+    for name, p in lm.named_parameters():
+        dt = cdt if p.dtype == torch.float32 and p.ndim >= 2 else p.dtype
+        mod, _, attr = name.rpartition(".")
+        setattr(out.get_submodule(mod) if mod else out, attr,
+                nn.Parameter(torch.empty(p.shape, dtype=dt, device=p.device)))
+    return out
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_clone(v) for v in tree))
+    return tree.clone()
+
+
+def build_train_step(api: ModelApi, tcfg: TrainConfig, rules=None, *,
+                     donate: bool = True, batch_template=None,
+                     deterministic: bool = True):
+    """Returns (train_step, info, opt_init).
+
+    ``train_step(lm, opt_state, err_state, batch, generator)`` updates the
+    LM's parameters and the optimizer state in place when ``donate`` (the
+    reference donates its buffers to XLA) and returns them; without
+    ``donate`` it works on copies and leaves its inputs as they were.
+    ``batch``: {"tokens", "labels"} tensors on the LM's device.
+    ``generator`` draws the int8 compression's rounding noise (unused
+    without compression). ``opt_init(lm)`` makes the optimizer state.
+    ``info`` holds ``remat``, ``optimizer`` and
+    ``value_and_grad(lm, batch) -> (loss, grads)``, the step's own
+    gradient path.
+    ``batch_template`` pins input shardings in the reference and is
+    accepted for its interface only."""
+    if rules is not None:
+        raise NotImplementedError(f"build_train_step(rules=...): {_SHARDING}")
+    cfg = api.cfg
+    init_fn, opt_update = make_optimizer(tcfg)
+    use_compression = tcfg.grad_compression == "int8"
+    paths = reference_paths(cfg)
+    # Adafactor factors and clips each *stacked* leaf as one tensor, so it
+    # sees the reference's leaves; AdamW is elementwise and sees the
+    # port's parameters as they are (no stacking copy)
+    stacked = tcfg.optimizer == "adafactor"
+    box: Dict[str, LM] = {}
+
+    def opt_view(by_name: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if not stacked:
+            return by_name
+        return {path: (torch.stack([by_name[n] for n in names])
+                       if path.startswith("layers/") else by_name[names[0]])
+                for path, names in paths}
+
+    def from_view(upd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if not stacked:
+            return upd
+        out = {}
+        for path, names in paths:
+            if path.startswith("layers/"):
+                out.update(zip(names, upd[path].unbind(0)))
+            else:
+                out[names[0]] = upd[path]
+        return out
+
+    def opt_init(lm: LM):
+        return init_fn(opt_view(dict(lm.named_parameters())))
+
+    def value_and_grad(lm: LM, batch):
+        """(loss, {parameter name: float32 gradient}) through the compute
+        copy, as the step takes them."""
+        params = dict(lm.named_parameters())
+        cc = box.get("compute")
+        if cc is None or cc.embed.device != lm.embed.device:
+            cc = box["compute"] = _compute_copy(lm)
+        cparams = dict(cc.named_parameters())
+        with torch.no_grad():
+            for n, p in params.items():
+                cparams[n].copy_(p)
+        loss = api.loss_fn(cc, batch, remat=tcfg.remat)
+        gl = torch.autograd.grad(loss, list(cparams.values()))
+        return loss.detach(), {n: g.to(params[n].dtype)
+                               for n, g in zip(cparams, gl)}
+
+    def train_step(lm: LM, opt_state, err_state, batch, generator):
+        if not donate:
+            lm, opt_state, err_state = (copy.deepcopy(lm), _clone(opt_state),
+                                        _clone(err_state))
+        with deterministic_algorithms(deterministic):
+            loss, grads = value_and_grad(lm, batch)
+            params = dict(lm.named_parameters())
+            with torch.no_grad():
+                if use_compression:
+                    grads, err_state = compress_decompress(grads, err_state,
+                                                           generator)
+                upd, opt_state = opt_update(opt_view(grads), opt_state,
+                                            opt_view(params))
+                updates = from_view(upd)
+                del upd
+                for n, p in params.items():
+                    p.add_(updates[n].to(p.dtype))
+                sq = {n: torch.sum(torch.square(g.to(torch.float32)))
+                      for n, g in grads.items()}
+                del grads
+                gnorm = torch.sqrt(torch.stack(
+                    [leaf_checksum(x) for _, x in
+                     tree_items(reference_tree(cfg, sq))]).sum())
+                metrics = {"loss": loss.to(torch.float32), "grad_norm": gnorm}
+                checksums = {
+                    "params": tree_checksums(reference_tree(cfg, params)),
+                    "opt": tree_checksums(opt_tree(cfg, opt_state)),
+                    "updates": tree_checksums(reference_tree(cfg, updates)),
+                }
+        return lm, opt_state, err_state, metrics, checksums
+
+    info = {"remat": tcfg.remat, "optimizer": tcfg.optimizer,
+            "value_and_grad": value_and_grad}
+    return train_step, info, opt_init
+
+
+def build_serve_step(api: ModelApi, rules=None, *, batch: int, max_len: int,
+                     donate: bool = True):
+    """One-token decode step builder. Returns (serve_step, info), with
+    ``serve_step(lm, cache, tokens, pos) -> (logits, cache)``: the port's
+    ``decode_step``, which writes the cache in place (what the
+    reference's donation of the cache amounts to). ``info`` holds the
+    cache's shapes and logical axes."""
+    if rules is not None:
+        raise NotImplementedError(f"build_serve_step(rules=...): {_SHARDING}")
+    cfg = api.cfg
+
+    def serve_step(lm, cache, tokens, pos):
+        return api.decode_step(lm, cache, tokens, pos)
+
+    shapes, axes = init_cache(cfg, batch, max_len, device="meta")
+    info = {"cache_shapes": {k: tuple(v.shape) for k, v in shapes.items()},
+            "cache_axes": axes}
+    return serve_step, info

@@ -44,7 +44,7 @@ def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "the port runs on one card: sharded attention (mesh) comes with "
-            "ROADMAP A10b's sharding slice")
+            "ROADMAP A10b.7's sharding slice")
 
 
 def empty_weight(shape: Tuple[int, ...], dtype: torch.dtype,

@@ -1,5 +1,5 @@
-"""The dense transformer LM: prefill forward (plain or flash attention)
-and KV-cache decode.
+"""The dense transformer LM: training loss, prefill forward (plain or
+flash attention) and KV-cache decode.
 
 The JAX package's ``models/lm.py`` for the ``dense`` family, as an
 ``nn.Module``: embedding table, a ``ModuleList`` of blocks (attention +
@@ -8,28 +8,37 @@ table itself when ``cfg.tie_embeddings``. The reference stacks its
 layers and scans over them; here the layers are a Python loop.
 
   LM(cfg).init_(generator)              random weights at the reference's scales
-  forward(cfg, lm, batch, flash=...)    -> logits (B, S, vocab)
+  abstract_init(cfg)                    the LM on the ``meta`` device (shapes only)
+  loss_fn(cfg, lm, batch, remat=...)    masked cross entropy, differentiable
+  forward(cfg, lm, batch, flash=...)    -> logits (B, S, vocab), no gradient
   init_cache(cfg, B, max_len)           -> (cache, axes)
   decode_step(cfg, lm, cache, tok, pos) -> (logits (B, 1, vocab), cache)
 
-Tables are ``cfg.padded_vocab`` wide and logits are sliced back to
-``cfg.vocab_size``. The training entry points (``loss_fn``,
-``cross_entropy``) and the moe / mla / vlm / audio branches come with
-later slices (ROADMAP A10b).
+Training and serving share one layer loop (:func:`forward_train`, which
+records gradients); ``forward`` runs it under ``torch.no_grad``. Tables
+are ``cfg.padded_vocab`` wide and logits are sliced back to
+``cfg.vocab_size``. ``remat`` ("none", "full", "dots") chooses what the
+backward pass recomputes and changes no value. The moe / mla / vlm /
+audio branches come with their families (ROADMAP A10b.6).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from . import layers as L
 
-__all__ = ["LM", "Block", "check_ported", "forward", "init_cache",
-           "decode_step"]
+__all__ = ["LM", "Block", "check_ported", "abstract_init", "forward",
+           "forward_train", "cross_entropy", "loss_fn", "init_cache",
+           "decode_step", "REMAT"]
+
+REMAT = ("none", "full", "dots")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -39,7 +48,7 @@ def check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (mla={cfg.use_mla}, "
             f"experts={cfg.n_experts}) is not ported yet; the port builds "
-            f"the dense family only (ROADMAP A10b lists what follows)")
+            f"the dense family only (ROADMAP A10b.6 ports the others)")
 
 
 class Block(nn.Module):
@@ -86,6 +95,12 @@ class LM(nn.Module):
         return self
 
 
+def abstract_init(cfg: ModelConfig) -> LM:
+    """The LM on the ``meta`` device: every parameter's shape and type,
+    no storage (the reference's ``abstract_init``)."""
+    return LM(cfg, device="meta")
+
+
 # ---------------------------------------------------------------------------
 # layer body
 # ---------------------------------------------------------------------------
@@ -124,21 +139,80 @@ def _head(cfg: ModelConfig, lm: LM, h: torch.Tensor) -> torch.Tensor:
 # forward / decode
 # ---------------------------------------------------------------------------
 
+def _save_projections(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs of
+    the projection products (``aten.mm``: ``x @ w`` with no batch
+    dimension) and recompute everything else, attention's batched
+    products included. The counterpart of JAX's
+    ``checkpoint_dots_with_no_batch_dims``."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def forward_train(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
+                  remat: str = "none", flash: bool = False) -> torch.Tensor:
+    """Logits (B, S, vocab) in the compute type, recording gradients for
+    whichever weights require them. ``remat``: "none" keeps every
+    activation for the backward pass, "full" keeps each layer's input
+    only, "dots" also the projections' outputs (``torch.utils.checkpoint``
+    per layer, non-reentrant)."""
+    if remat not in REMAT:
+        raise ValueError(f"remat={remat!r}: choose from {REMAT}")
+    h, positions = _embed_batch(cfg, lm, batch)
+    for lp in lm.layers:
+        def body(h, lp=lp):
+            return _layer_apply(cfg, lp, h, positions, mesh, flash=flash)[0]
+        if remat == "none":
+            h = body(h)
+        elif remat == "full":
+            h = ckpt.checkpoint(body, h, use_reentrant=False)
+        else:
+            h = ckpt.checkpoint(body, h, use_reentrant=False,
+                                context_fn=functools.partial(
+                                    ckpt.create_selective_checkpoint_contexts,
+                                    _save_projections))
+    h = lm.norm_f(h)
+    return _head(cfg, lm, h)
+
+
 @torch.no_grad()
 def forward(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
             remat: str = "none", flash: bool = False) -> torch.Tensor:
-    """Prefill forward: logits (B, S, vocab) in the compute type. With
-    ``flash`` each layer's attention goes through the flash kernel where
-    the reference's would (causal config, S % 8 == 0). ``remat`` is a
-    training knob and must be ``"none"``."""
+    """Prefill forward: logits (B, S, vocab) in the compute type, without
+    gradients. With ``flash`` each layer's attention goes through the
+    flash kernel where the reference's would (causal config,
+    S % 8 == 0). ``remat`` only matters where gradients are taken, so it
+    must be ``"none"`` here; training goes through :func:`loss_fn`."""
     if remat != "none":
-        raise NotImplementedError(f"remat={remat!r}: rematerialisation is a "
-                                  f"training option and the port serves only")
-    h, positions = _embed_batch(cfg, lm, batch)
-    for lp in lm.layers:
-        h, _ = _layer_apply(cfg, lp, h, positions, mesh, flash=flash)
-    h = lm.norm_f(h)
-    return _head(cfg, lm, h)
+        raise NotImplementedError(
+            f"remat={remat!r}: rematerialisation only applies where "
+            f"gradients are taken; train through loss_fn")
+    return forward_train(cfg, lm, batch, mesh, flash=flash)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore: int = -100) -> torch.Tensor:
+    """Masked cross entropy in float32; labels == ``ignore`` are excluded.
+    The gold logit is picked by indexing, whose backward has a
+    deterministic CUDA implementation."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    flat = logits.reshape(-1, logits.shape[-1])
+    rows = torch.arange(flat.shape[0], device=flat.device)
+    gold = flat[rows, labels.reshape(-1).clamp_min(0).long()]
+    nll = lse - gold.reshape(labels.shape)
+    mask = (labels != ignore).to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def loss_fn(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
+            remat: str = "none") -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch`` (tokens, labels) with
+    plain attention, as the reference's (the flash kernel has no
+    backward)."""
+    logits = forward_train(cfg, lm, batch, mesh, remat=remat)
+    return cross_entropy(logits, batch["labels"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):

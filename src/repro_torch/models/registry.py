@@ -8,6 +8,7 @@ ports them.
     api = build_model("llama3-8b")
     lm = api.init(generator)                     # weights on get_device()
     logits = api.forward(lm, batch, flash=True)  # prefill
+    loss = api.loss_fn(lm, batch, remat="dots")  # training loss
     cache, _ = api.init_cache(B, max_len)
     logits, cache = api.decode_step(lm, cache, tokens, pos)
 
@@ -41,23 +42,26 @@ ARCHS = {
 
 # archs of the reference that the port does not build yet -> what ports them
 NOT_PORTED = {
-    "deepseek-v2-lite-16b": "ROADMAP A10b (moe and mla families)",
-    "kimi-k2-1t-a32b": "ROADMAP A10b (moe and mla families)",
-    "hubert-xlarge": "ROADMAP A10b (audio family)",
-    "qwen2-vl-2b": "ROADMAP A10b (vlm family, M-RoPE)",
-    "zamba2-1.2b": "ROADMAP A10b (hybrid family)",
-    "mamba2-130m": "ROADMAP A10b (ssm family)",
+    "deepseek-v2-lite-16b": "ROADMAP A10b.6 (moe and mla families)",
+    "kimi-k2-1t-a32b": "ROADMAP A10b.6 (moe and mla families)",
+    "hubert-xlarge": "ROADMAP A10b.6 (audio family)",
+    "qwen2-vl-2b": "ROADMAP A10b.6 (vlm family, M-RoPE)",
+    "zamba2-1.2b": "ROADMAP A10b.6 (hybrid family)",
+    "mamba2-130m": "ROADMAP A10b.6 (ssm family)",
 }
 
 
 @dataclasses.dataclass
 class ModelApi:
-    """Serving interface of one architecture. Every call runs on
-    :func:`repro_torch.get_device` unless the caller selects the CPU."""
+    """Training and serving interface of one architecture. Every call
+    runs on :func:`repro_torch.get_device` unless the caller selects the
+    CPU."""
 
     cfg: ModelConfig
     init: Callable          # generator -> LM
+    abstract_init: Callable  # () -> LM on the meta device
     forward: Callable       # (lm, batch, mesh=None, remat="none", flash=False) -> logits
+    loss_fn: Callable       # (lm, batch, mesh=None, remat="none") -> loss
     init_cache: Callable    # (batch, max_len) -> (cache, axes)
     decode_step: Callable   # (lm, cache, tokens, pos, mesh=None) -> (logits, cache)
 
@@ -75,8 +79,11 @@ def _lm_api(cfg: ModelConfig) -> ModelApi:
     return ModelApi(
         cfg=cfg,
         init=init,
+        abstract_init=lambda: LMmod.abstract_init(cfg),
         forward=lambda p, b, mesh=None, remat="none", flash=False:
         LMmod.forward(cfg, p, b, mesh, remat=remat, flash=flash),
+        loss_fn=lambda p, b, mesh=None, remat="none": LMmod.loss_fn(
+            cfg, p, b, mesh, remat=remat),
         init_cache=lambda batch, max_len: LMmod.init_cache(
             cfg, batch, max_len, device=get_device()),
         decode_step=lambda p, c, t, pos, mesh=None: LMmod.decode_step(
