@@ -6,6 +6,7 @@ with itself on the card.
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --phases card,build,kernels   # some, in order, to debug
     python3 chip_smoke.py --phases card,train           # the trainer alone
+    python3 chip_smoke.py --phases card,serve_moe       # the moe family alone
 
 Phases, each printing one JSON line:
 
@@ -20,7 +21,9 @@ Phases, each printing one JSON line:
            abft_matmul and tile_sums, the llama3-8b prefill's for
            flash_attention) and at ragged ones, with the tolerance stated,
            timed with CUDA events beside the plain version, one library
-           call and the card's bound
+           call and the card's bound; flash_attention also at head dims
+           off its tile widths (hubert-xlarge's 80, and 48), f32 and bf16,
+           causal and not
   sweep    the port's main path, ``sweep(engine="fork", mode="batched")``,
            on four workloads under the torn-crash figure's strategies and
            full plans; every cell must equal the port's ``mode="measure"``
@@ -50,6 +53,24 @@ Phases, each printing one JSON line:
            attention beside it, 32 greedy KV-cache decode steps, and a
            teacher-forced decode of 16 prompt tokens that must give the
            plain forward's logits; prints tokens per second and peak memory
+  serve_moe the moe family: deepseek-v2-lite-16b (MoE with latent attention)
+           at full width and depth, 64.8 GB of f32 weights from a seeded
+           generator on the card: prefill of 2 prompts x 1024 tokens, which
+           must launch no flash_attention (MLA has no flash branch) and
+           give the same logits with flash off; a teacher-forced decode of
+           16 prompt tokens through the absorbed MLA path against the
+           latent cache, held to the prefill's logits, and again in
+           float32 compute against a float32 forward, where rounding
+           cannot move routing; 16 greedy decode steps; the latent
+           cache's bytes beside an expanded cache's; a profiler split of
+           one prefill by group. Then kimi-k2-1t-a32b (MoE with GQA) at
+           its reduced size, whose prefill launches flash_attention once
+           per layer, each launch held to the kernel's plain version on
+           its own inputs: in float32 the flash forward equals the plain
+           one within a bound set from its reading; in bf16 each layer's
+           flash output equals its plain output on the same input (tokens
+           whose routing may flip at a near-tie excepted, under 5 %); a
+           few decode steps
   train    the ADCC trainer (``ADCCTrainer.run``) at llama3-8b's full width
            with depth cut to 2 of 32 layers (1 where the disk cannot hold
            two slots), random weights from a seeded generator on the card,
@@ -62,7 +83,11 @@ Phases, each printing one JSON line:
            synchronous-checkpoint baseline. Prints per mode the step
            times with and without a slot, the ledger appends, the host
            copies, the writer's and the recovery's seconds, peak memory,
-           a profiled step and the cost of deterministic algorithms
+           a profiled step and the cost of deterministic algorithms. Then
+           deepseek-v2-lite-16b at full width, 2 of 27 layers (19 GB slots),
+           the same batch and options: 6 uninterrupted steps, and the ADCC
+           crash with a torn newest slot whose recovery must end bitwise
+           equal
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. Without a CUDA card the script exits at once with code 2.
@@ -120,12 +145,16 @@ from repro_torch.launch.steps import tree_checksums  # noqa: E402
 from repro_torch.launch.train import ADCCTrainer  # noqa: E402
 from repro_torch.models.carry import opt_tree, reference_tree  # noqa: E402
 from repro_torch.models import build_model, get_config  # noqa: E402
+from repro_torch.models import layers as layers_mod  # noqa: E402
+from repro_torch.models import lm as lm_mod  # noqa: E402
+from repro_torch.models import mla as mla_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.scenarios import (CrashPlan, TornSpec,  # noqa: E402
                                    deterministic_cell_dict, sweep)
 from repro_torch.scenarios import batched_engine, driver  # noqa: E402
 
 PHASES = ("card", "build", "kernels", "sweep", "sharded", "kv", "device",
-          "serve", "train")
+          "serve", "serve_moe", "train")
 
 # tensor-core instructions counted in each kernel's SASS, and the kernels
 # that must have them: library -> (name in the kernel's symbol, kinds)
@@ -158,6 +187,52 @@ SERVE_SEED = 12
 SERVE_ATOL = 0.05
 SERVE_ARGMAX_FLOOR = 0.9
 
+# the moe serving phase: deepseek-v2-lite-16b at full width and full depth
+# (27 layers, 16.21e9 f32 parameters, 64.8 GB), prompts 2 x 1024
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_BATCH, MOE_PROMPT = 2, 1024
+MOE_DECODE_STEPS = 16
+MOE_TEACHER_TOKENS = 16
+MOE_SEED = 16
+# Teacher-forced decode (MLA absorbed into the latent cache, 2 tokens a
+# step) against the prefill's logits (MLA expanded, 2048 tokens), bf16.
+# The two paths round at other points, and a token whose K-th and
+# (K+1)-th router probabilities are that close then takes another expert
+# in one of them, which moves its logits far beyond a rounding step: on
+# the CPU the reference itself differs so by 0.04-1.28 on deepseek
+# reduced, logits near 2.5 (tests/test_torch_moe.py). On an H100 the
+# full model gave 0.264 with a largest logit of 1.18 and argmax agreement
+# on 26 of the 32 tokens (81 %): the bound sits at 2.5 x the reading, the
+# floor 3 tokens below it.
+MOE_TEACHER_ATOL = 0.66
+MOE_TEACHER_ARGMAX_FLOOR = 0.7
+# The same teacher-forced decode in float32 compute on the same weights,
+# against a float32 forward of the same tokens: rounding no longer moves
+# routing, so the check sees MLA's absorbed path itself (its scale, its
+# RoPE term, its probability cast). A token may route differently in the
+# two only where its margin is below MOE_F32_ROUTING_MARGIN (float32
+# noise on the probabilities is about 1e-7); the logits are compared at
+# the positions before a sequence's first such token, which no routing
+# difference can reach under causal attention. On an H100 the full model
+# gave 2.67e-6 (largest logit 1.07), no token routed differently in 864
+# decisions, argmax agreement 100 %: the bound sits at 3.7 x the reading
+# (the CPU tests hold the reduced model at 1e-4).
+MOE_F32_ROUTING_MARGIN = 1e-5
+MOE_F32_TEACHER_ATOL = 1e-5
+# kimi-k2 at its reduced size: the moe family's flash branch
+KIMI_ARCH = "kimi-k2-1t-a32b"
+KIMI_BATCH, KIMI_PROMPT = 2, 1024
+KIMI_DECODE_STEPS = 4
+KIMI_SEED = 17
+# bf16 flash against plain, layer by layer: tokens routed alike by the
+# routing rule of repro_torch.models.moe (same_routing, check_flip_share),
+# their outputs within two bf16 ulps of the layer's largest output
+# (tests/test_torch_moe.py holds the port to the reference so); and every
+# flash launch of the prefills held against the kernel's plain version on
+# its own q/k/v at the kernel's tolerances. float32 flash against plain,
+# the whole model: 2.5 x the reading of 8.3e-6 on an H100.
+KIMI_F32_ATOL = 2.1e-5
+
 # the train phase: the ADCC trainer at llama3-8b's full width with depth
 # cut to 2 of 32 layers (1 where the disk cannot hold two slots of 2),
 # AdamW, remat "dots", batch 2 x the train_4k sequence length
@@ -167,12 +242,18 @@ TRAIN_BATCH, TRAIN_SEQ = 2, 4096
 TRAIN_STEPS, TRAIN_CRASH_RUN = 6, 4
 TRAIN_SLOT_EVERY, TRAIN_SLOTS = 2, 2
 TRAIN_SEED = 15
+# and deepseek-v2-lite-16b at full width, 2 of 27 layers, the same batch
+MOE_TRAIN_ARCH = "deepseek-v2-lite-16b"
 
 # flash_attention against its plain version: bf16 two bf16 ulps of the
 # value (rtol 1.6e-2, atol 1e-5), f32 1e-5; the reasons stand beside the
 # numbers in the kernel's module, which the CPU tests read too
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = fa_kernel.BF16_RTOL, fa_kernel.BF16_ATOL
 FLASH_F32_TOL = fa_kernel.F32_TOL
+# head dims off the kernel's tile widths at a prefill's size: hubert-
+# xlarge's attention (16 heads of 80, run in the 128-column tile) and 48
+# (in the 64-column tile)
+FLASH_HD_SHAPES = ((2, 4096, 16, 80), (2, 4096, 16, 48))
 
 # the torn-crash figure's sweep axes (benchmarks/fig_torn.py, full size)
 TORN_SEED = 23
@@ -536,10 +617,11 @@ def phase_kernels() -> list:
 
 def _flash_checks(dev) -> list:
     """flash_attention against its plain version: the reference's four
-    shapes, ragged S, GQA and MHA, head dims 16-128, causal and not, a
-    strided view. Tolerances: float32 ``1e-5``, the reference's
-    (tests/test_kernels.py; summation order of a float32 softmax, both
-    sides full float32, no TF32); bfloat16 two ulps of the value
+    shapes, ragged S, GQA and MHA, head dims 8-128 (on the tile widths and
+    off them), causal and not, a strided view. Tolerances: float32
+    ``1e-5``, the reference's (tests/test_kernels.py; summation order of
+    a float32 softmax, both sides full float32, no TF32); bfloat16 two
+    ulps of the value
     (``FLASH_BF16_RTOL``), far tighter than the reference's ``5e-2``
     because both sides compute in float32 from the same bf16 inputs."""
     out = []
@@ -562,7 +644,20 @@ def _flash_checks(dev) -> list:
              ((1, 200, 8, 2, 128), torch.bfloat16, True),
              ((2, 200, 4, 1, 32), torch.bfloat16, True),
              ((1, 200, 4, 2, 128), torch.bfloat16, False),
-             ((1, 129, 4, 4, 16), torch.bfloat16, False)]
+             ((1, 129, 4, 4, 16), torch.bfloat16, False),
+             # head dims off the tile widths: run in the next one with
+             # the columns beyond hd zero
+             ((1, 200, 4, 2, 48), torch.float32, True),
+             ((1, 100, 4, 2, 80), torch.float32, False),
+             ((2, 8, 4, 2, 8), torch.float32, True),
+             ((1, 200, 4, 2, 48), torch.bfloat16, True),
+             ((2, 129, 4, 2, 48), torch.bfloat16, False),
+             ((2, 130, 4, 4, 80), torch.bfloat16, True),
+             ((1, 72, 4, 2, 24), torch.bfloat16, True),
+             ((2, 8, 4, 2, 8), torch.bfloat16, False),
+             # kimi-k2 reduced's prefill: q (2,1024,4,32), k/v (2,1024,2,32)
+             ((2, 1024, 4, 2, 32), torch.float32, True),
+             ((2, 1024, 4, 2, 32), torch.bfloat16, True)]
     for (B, S, H, KV, hd), dtype, causal in cases:
         rng = np.random.default_rng(B * 1000 + S * 10 + hd)
         q, k, v = (torch.from_numpy(rng.normal(size=(B, S, n, hd))
@@ -593,6 +688,54 @@ def _flash_checks(dev) -> list:
                           rtol, atol)
         out.append({"case": name, "rtol": rtol, "atol": atol,
                     "max_abs_err": err})
+    return out
+
+
+def _flash_head_dims(dev) -> list:
+    """B3 at head dims off its tile widths, at a prefill's size
+    (``FLASH_HD_SHAPES``): f32 and bf16, causal and not, against the plain
+    version at the unchanged tolerances; the bf16 calls timed beside
+    their bound (operations: 4 hd per visible (query, key) pair and head,
+    against the bf16 peak), the plain version and SDPA."""
+    out = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for B, S, H, hd in FLASH_HD_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(hd)
+        qkv32 = [torch.randn((B, S, H, hd), generator=g, device=dev)
+                 for _ in range(3)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in qkv32)
+            rtol, atol = ((FLASH_F32_TOL, FLASH_F32_TOL)
+                          if dtype == torch.float32
+                          else (FLASH_BF16_RTOL, FLASH_BF16_ATOL))
+            for causal in (True, False):
+                name = (f"flash_attention{(B, S, H, H, hd)}/"
+                        f"{str(dtype)[6:]}{'' if causal else ' not causal'}")
+                got = fa_ops.flash_attention(q, k, v, causal=causal)
+                want = fa_kernel.flash_attention_plain(q, k, v, causal=causal)
+                rec = {"case": name, "rtol": rtol, "atol": atol,
+                       "max_abs_err": check_close(name, got, want, rtol,
+                                                  atol)}
+                del got, want
+                if dtype == torch.bfloat16:
+                    pairs = S * (S + 1) / 2 if causal else S * S
+                    by_ops = 4.0 * hd * B * H * pairs / PEAK_FLOPS[dtype]
+                    by_bytes = 2.0 * 4 * B * S * H * hd / PEAK_BYTES_PER_S
+                    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                    rec.update({
+                        "ms": time_ms(lambda: fa_ops.flash_attention(
+                            q, k, v, causal=causal), 10),
+                        "plain_ms": time_ms(
+                            lambda: fa_kernel.flash_attention_plain(
+                                q, k, v, causal=causal), 3),
+                        "bound_ms": 1e3 * max(by_ops, by_bytes),
+                        "bound_by": ("operations" if by_ops >= by_bytes
+                                     else "bytes"),
+                        "library_ms": time_ms(lambda: sdpa(
+                            qt, kt, vt, is_causal=causal), 10)})
+                out.append(rec)
+                torch.cuda.empty_cache()
+        del qkv32, q, k, v
     return out
 
 
@@ -649,6 +792,7 @@ def _flash_record(dev) -> dict:
                                            enable_gqa=True), 10),
         "library_call": "torch.nn.functional.scaled_dot_product_attention"
                         "(is_causal=True, enable_gqa=True)",
+        "head_dims": _flash_head_dims(dev),
     }
 
 
@@ -1367,15 +1511,420 @@ def phase_serve(records: list) -> None:
     torch.cuda.empty_cache()
 
 
+class _Routing:
+    """Records the port's router calls while it is open: per call the
+    chosen ids (T, K) and the float32 probabilities (T, E)."""
+
+    def __enter__(self):
+        self.calls = []
+        self._real = moe_mod.router_topk
+
+        def spy(cfg, w, x):
+            out = self._real(cfg, w, x)
+            probs = torch.softmax(x.to(torch.float32) @ w.to(torch.float32),
+                                  dim=-1)
+            self.calls.append((out[1], probs))
+            return out
+
+        moe_mod.router_topk = spy
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.router_topk = self._real
+
+
+class _FlashChecked:
+    """While open, every flash_attention call of the model's layers is
+    held against the kernel's plain version on the same q/k/v, at the
+    kernel's tolerances for its type; per call, its max abs error. The
+    plain version launches no kernel, so the counts are the model's."""
+
+    def __enter__(self):
+        self.errs = []
+        self._real = layers_mod.flash_attention
+
+        def checked(q, k, v, *, causal=True):
+            out = self._real(q, k, v, causal=causal)
+            rtol, atol = ((FLASH_F32_TOL, FLASH_F32_TOL)
+                          if q.dtype == torch.float32
+                          else (FLASH_BF16_RTOL, FLASH_BF16_ATOL))
+            name = (f"flash_attention in the prefill, launch "
+                    f"{len(self.errs) + 1}, q {tuple(q.shape)} "
+                    f"{str(q.dtype)[6:]}")
+            self.errs.append(check_close(
+                name, out, fa_kernel.flash_attention_plain(
+                    q, k, v, causal=causal), rtol, atol))
+            return out
+
+        layers_mod.flash_attention = checked
+        return self
+
+    def __exit__(self, *exc):
+        layers_mod.flash_attention = self._real
+
+
+def _flash_layer_by_layer(cfg, lm, batch) -> dict:
+    """bf16, each layer twice on the plain forward's own layer input:
+    with the flash kernel and with plain attention. Tokens routed alike
+    must agree within two bf16 ulps of the layer's largest output."""
+    h, positions = lm_mod._embed_batch(cfg, lm, batch)
+    sames, worst, bounds = [], 0.0, []
+    with torch.no_grad():
+        for lp in lm.layers:
+            with _Routing() as plain_r:
+                plain, _ = lm_mod._layer_apply(cfg, lp, h, positions)
+            with _Routing() as flash_r:
+                flash, _ = lm_mod._layer_apply(cfg, lp, h, positions,
+                                               flash=True)
+            (ids, probs), = plain_r.calls
+            (f_ids, _), = flash_r.calls
+            same = moe_mod.same_routing(cfg, ids, probs, f_ids)
+            sames.append(same)
+            p = plain.reshape(same.numel(), -1)[same].float()
+            f = flash.reshape(same.numel(), -1)[same].float()
+            bound = 2.0 ** -6 * float(p.abs().max())
+            err = float((f - p).abs().max())
+            if err > bound:
+                raise AssertionError(f"flash layer differs from plain by "
+                                     f"{err} (bound {bound})")
+            worst = max(worst, err)
+            bounds.append(bound)
+            h = plain
+    return {"tokens": int(positions.numel()), "layers": cfg.n_layers,
+            "routing_flips": moe_mod.check_flip_share(sames), "max_abs_err": worst,
+            "bounds": bounds}
+
+
+def _teacher_forced_f32(cfg, lm, tokens) -> dict:
+    """deepseek in float32 compute on the same weights: teacher-forced
+    decode of ``tokens`` (B, n), absorbed MLA against the latent cache,
+    against a forward of the same tokens. Routing of the two by
+    ``MOE_F32_ROUTING_MARGIN``; logits within ``MOE_F32_TEACHER_ATOL`` at
+    each sequence's positions before its first differently routed token
+    (all of them where none is)."""
+    fapi = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    B, n = tokens.shape
+    L_ = cfg.n_layers
+    with torch.no_grad():
+        with _Routing() as fwd_r:
+            fwd = fapi.forward(lm, {"tokens": tokens})
+        cache, _ = fapi.init_cache(B, n)
+        outs = []
+        with _Routing() as dec_r:
+            for t in range(n):
+                lg, cache = fapi.decode_step(lm, cache, tokens[:, t:t + 1], t)
+                outs.append(lg)
+    dec = torch.cat(outs, dim=1)
+    if fwd.dtype != torch.float32 or dec.shape != fwd.shape \
+            or len(fwd_r.calls) != L_ or len(dec_r.calls) != n * L_:
+        raise AssertionError(f"f32 teacher-forced decode: {dec.shape} "
+                             f"{fwd.dtype}, router calls "
+                             f"{len(fwd_r.calls)} / {len(dec_r.calls)}")
+    routed_alike = torch.ones((B, n), dtype=torch.bool, device=fwd.device)
+    for layer, (ids, probs) in enumerate(fwd_r.calls):
+        # the decode's calls go step by step, each through every layer
+        dec_ids = torch.stack([dec_r.calls[t * L_ + layer][0]
+                               for t in range(n)], dim=1)     # (B, n, K)
+        same = moe_mod.same_routing(cfg, ids, probs,
+                                    dec_ids.reshape(B * n, -1),
+                                    margin=MOE_F32_ROUTING_MARGIN)
+        routed_alike &= same.reshape(B, n)
+    # a sequence's positions before its first differently routed token
+    clean = torch.cumprod(routed_alike.to(torch.int32), dim=1).bool()
+    if not bool(clean[:, 0].all()):
+        raise AssertionError("f32 teacher-forced decode: a first token "
+                             "routed differently, nothing to compare")
+    err = float((dec - fwd).abs().amax(dim=-1)[clean].max())
+    if err > MOE_F32_TEACHER_ATOL:
+        raise AssertionError(f"f32 teacher-forced decode differs from the "
+                             f"forward by {err} (bound "
+                             f"{MOE_F32_TEACHER_ATOL})")
+    return {"tokens": B * n, "router_decisions": B * n * L_,
+            "routed_differently": int((~routed_alike).sum()),
+            "positions_compared": int(clean.sum()),
+            "max_abs_err": err, "atol": MOE_F32_TEACHER_ATOL,
+            "routing_margin": MOE_F32_ROUTING_MARGIN,
+            "argmax_agree": _argmax_share(dec, fwd),
+            "logit_absmax": float(fwd.abs().max())}
+
+
+def _prefill_split(fn) -> dict:
+    """Device time of one deepseek prefill by group, from torch.profiler:
+    each kernel is attributed through the CPU operation that launched it
+    to the MoE layer (``moe_apply_dense``: its expert einsums apart from
+    the router and combine) or the MLA layer (``mla_apply``), the weight
+    and activation casts (``aten::to`` / ``aten::copy_``) apart wherever
+    they run, and everything else (embedding, norms, residuals, head)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    real = {"moe": moe_mod.moe_apply_dense, "mla": mla_mod.mla_apply}
+
+    def ranged(label, f):
+        def run(*a, **kw):
+            with record_function(label):
+                return f(*a, **kw)
+        return run
+
+    moe_mod.moe_apply_dense = ranged("split::moe", real["moe"])
+    mla_mod.mla_apply = ranged("split::mla", real["mla"])
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.stop()
+    finally:
+        moe_mod.moe_apply_dense, mla_mod.mla_apply = real["moe"], real["mla"]
+    groups = dict.fromkeys(("expert_einsums", "moe_router_and_combine",
+                            "mla", "casts", "other"), 0.0)
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CPU or not evt.kernels:
+            continue
+        names, node = [], evt
+        while node is not None:
+            names.append(node.name)
+            node = node.cpu_parent
+        sec = sum(k.duration for k in evt.kernels) / 1e6
+        if any(n in ("aten::to", "aten::_to_copy", "aten::copy_")
+               for n in names):
+            groups["casts"] += sec
+        elif "split::moe" in names:
+            groups["expert_einsums" if "aten::einsum" in names
+                   and names.index("aten::einsum") < names.index("split::moe")
+                   else "moe_router_and_combine"] += sec
+        elif "split::mla" in names:
+            groups["mla"] += sec
+        else:
+            groups["other"] += sec
+    busy = sum(groups.values())
+    if busy <= 0:
+        raise AssertionError("the profiler attributed no device time")
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall),
+            "device_s_by_group": groups}
+
+
+def phase_serve_moe(records: list) -> None:
+    """deepseek-v2-lite-16b at full width and depth, then kimi-k2 at its
+    reduced size, through the port's model API; random weights from
+    seeded generators on the card."""
+    dev = torch.device("cuda")
+    cfg = get_config(MOE_ARCH)
+    api = build_model(cfg)
+    B, S = MOE_BATCH, MOE_PROMPT
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    lm = api.init(torch.Generator(device=dev).manual_seed(MOE_SEED))
+    batch = make_batch(cfg, B, S,
+                       torch.Generator(device=dev).manual_seed(MOE_SEED + 1))
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+
+    # the prefill asks for flash attention: MLA has no flash branch, so
+    # no kernel of the port launches. Counts to zero just before, read after
+    mm_kernel.launches = cv_kernel.launches = fa_kernel.launches = 0
+    t0 = time.perf_counter()
+    logits = api.forward(lm, batch, flash=True)
+    torch.cuda.synchronize()
+    prefill_first_seconds = time.perf_counter() - t0
+    launches = {"abft_matmul": mm_kernel.launches,
+                "tile_sums": cv_kernel.launches,
+                "flash_attention": fa_kernel.launches}
+    if any(launches.values()):
+        raise AssertionError(f"deepseek's prefill launched {launches}: MLA "
+                             f"takes no flash branch")
+    if logits.shape != (B, S, cfg.vocab_size) \
+            or logits.dtype != torch.bfloat16:
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                             f"{logits.dtype}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits are not finite")
+    del logits
+    t0 = time.perf_counter()
+    logits = api.forward(lm, batch, flash=True)
+    torch.cuda.synchronize()
+    prefill_seconds = time.perf_counter() - t0
+    if not torch.equal(api.forward(lm, batch, flash=False), logits):
+        raise AssertionError("deepseek's prefill depends on flash")
+    logit_absmax = float(logits.abs().max())
+    n = MOE_TEACHER_TOKENS
+    prefix = logits[:, :n].clone()
+    del logits
+    torch.cuda.empty_cache()
+
+    # teacher-forced decode: absorbed MLA against the latent cache
+    cache, _ = api.init_cache(B, S)
+    outs = []
+    for t in range(n):
+        lg, cache = api.decode_step(lm, cache, batch["tokens"][:, t:t + 1], t)
+        outs.append(lg)
+    teacher = torch.cat(outs, dim=1)
+    teacher_err = _logits_err(teacher, prefix)
+    teacher_agree = _argmax_share(teacher, prefix)
+    if teacher_err > MOE_TEACHER_ATOL \
+            or teacher_agree < MOE_TEACHER_ARGMAX_FLOOR:
+        raise AssertionError(f"teacher-forced decode differs from the "
+                             f"prefill by {teacher_err} (bound "
+                             f"{MOE_TEACHER_ATOL}), argmax agreement "
+                             f"{teacher_agree} (floor "
+                             f"{MOE_TEACHER_ARGMAX_FLOOR})")
+    del cache, outs, teacher, prefix
+    teacher_f32 = _teacher_forced_f32(cfg, lm, batch["tokens"][:, :n])
+
+    # greedy decode into a latent cache of the prompt's length
+    cache, _ = api.init_cache(B, S)
+    latent_bytes = sum(c.numel() * c.element_size() for c in cache.values())
+    expanded_bytes = (cfg.n_layers * B * S * cfg.n_heads
+                      * (cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim)
+                      * torch.finfo(torch.bfloat16).bits // 8)
+    tok = batch["tokens"][:, :1]
+    generated = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pos in range(MOE_DECODE_STEPS):
+        lg, cache = api.decode_step(lm, cache, tok, pos)
+        tok = lg.argmax(dim=-1).to(torch.int32)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_seconds = time.perf_counter() - t0
+    gen = torch.cat(generated, dim=1)
+    if gen.shape != (B, MOE_DECODE_STEPS) or int(gen.min()) < 0 \
+            or int(gen.max()) >= cfg.vocab_size or fa_kernel.launches:
+        raise AssertionError(f"greedy decode: tokens {gen.shape}, flash "
+                             f"launches {fa_kernel.launches}")
+    del cache
+    split = _prefill_split(lambda: api.forward(lm, batch, flash=True))
+    peak = torch.cuda.max_memory_allocated()
+    del lm, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kimi = _serve_kimi()
+    for rec in records:
+        if rec["name"] == "flash_attention":
+            rec["launches_by_path"] = {
+                "serve": rec["launches"], "serve_moe deepseek prefill": launches["flash_attention"],
+                "serve_moe kimi bf16 prefill": kimi["launches"]}
+    emit({"phase": "serve_moe", "arch": MOE_ARCH,
+          "n_layers": cfg.n_layers, "depth_cut": None,
+          "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+          "n_experts": cfg.n_experts, "experts_per_token":
+              cfg.experts_per_token, "n_shared_experts": cfg.n_shared_experts,
+          "moe_d_ff": cfg.moe_d_ff, "kv_lora_rank": cfg.kv_lora_rank,
+          "vocab": cfg.vocab_size, "param_dtype": cfg.param_dtype,
+          "compute_dtype": cfg.compute_dtype,
+          "params": cfg.param_count(),
+          "param_gb": param_bytes / 1e9, "init_seconds": init_seconds,
+          "batch": B, "prompt": S, "prefill_launches": launches,
+          "prefill_first_seconds": prefill_first_seconds,
+          "prefill_seconds": prefill_seconds,
+          "prefill_tokens_per_s": B * S / prefill_seconds,
+          "logit_absmax": logit_absmax,
+          "teacher_tokens": n, "teacher_max_abs_err": teacher_err,
+          "teacher_argmax_agree": teacher_agree,
+          "teacher_atol": MOE_TEACHER_ATOL,
+          "teacher_argmax_floor": MOE_TEACHER_ARGMAX_FLOOR,
+          "teacher_f32": teacher_f32,
+          "decode_steps": MOE_DECODE_STEPS, "decode_seconds": decode_seconds,
+          "decode_ms_per_step": 1e3 * decode_seconds / MOE_DECODE_STEPS,
+          "latent_cache_gb": latent_bytes / 1e9,
+          "expanded_cache_gb": expanded_bytes / 1e9,
+          "peak_memory_gb": peak / 1e9, "prefill_split": split,
+          "kimi": kimi})
+
+
+def _serve_kimi() -> dict:
+    """kimi-k2 (MoE with GQA) at its reduced size: the flash branch of the
+    moe family, once per layer in bf16 and in float32."""
+    dev = torch.device("cuda")
+    cfg = get_config(KIMI_ARCH).reduced()
+    api = build_model(cfg)
+    B, S = KIMI_BATCH, KIMI_PROMPT
+    lm = api.init(torch.Generator(device=dev).manual_seed(KIMI_SEED))
+    batch = make_batch(cfg, B, S,
+                       torch.Generator(device=dev).manual_seed(KIMI_SEED + 1))
+    mm_kernel.launches = cv_kernel.launches = fa_kernel.launches = 0
+    with _FlashChecked() as bf16_checked:
+        flash = api.forward(lm, batch, flash=True)
+    torch.cuda.synchronize()
+    launches = {"abft_matmul": mm_kernel.launches,
+                "tile_sums": cv_kernel.launches,
+                "flash_attention": fa_kernel.launches}
+    if launches != {"abft_matmul": 0, "tile_sums": 0,
+                    "flash_attention": cfg.n_layers}:
+        raise AssertionError(f"kimi's prefill launched {launches}, expected "
+                             f"flash_attention x {cfg.n_layers} and no other")
+    if flash.shape != (B, S, cfg.vocab_size) or flash.dtype != torch.bfloat16 \
+            or not bool(torch.isfinite(flash).all()):
+        raise AssertionError(f"kimi prefill logits {tuple(flash.shape)} "
+                             f"{flash.dtype}, or not finite")
+    plain = api.forward(lm, batch, flash=False)
+    bf16_err = _logits_err(flash, plain)
+    bf16_agree = _argmax_share(flash, plain)
+    if bf16_agree < SERVE_ARGMAX_FLOOR:
+        raise AssertionError(f"kimi bf16 flash forward: argmax agreement "
+                             f"{bf16_agree} (floor {SERVE_ARGMAX_FLOOR})")
+    layers = _flash_layer_by_layer(cfg, lm, batch)
+    # float32 compute on the same weights: the whole model
+    fcfg = dataclasses.replace(cfg, compute_dtype="float32")
+    fapi = build_model(fcfg)
+    before = fa_kernel.launches
+    with _FlashChecked() as f32_checked:
+        f32_flash = fapi.forward(lm, batch, flash=True)
+    f32_launches = fa_kernel.launches - before
+    f32_plain = fapi.forward(lm, batch, flash=False)
+    f32_err = _logits_err(f32_flash, f32_plain)
+    f32_agree = _argmax_share(f32_flash, f32_plain)
+    if f32_launches != cfg.n_layers or f32_err > KIMI_F32_ATOL \
+            or f32_agree < SERVE_ARGMAX_FLOOR:
+        raise AssertionError(f"kimi f32 flash forward: {f32_launches} "
+                             f"launches, differs from plain by {f32_err} "
+                             f"(bound {KIMI_F32_ATOL}), argmax {f32_agree}")
+    # a few greedy decode steps
+    cache, _ = api.init_cache(B, KIMI_DECODE_STEPS)
+    tok = batch["tokens"][:, :1]
+    before = fa_kernel.launches
+    for pos in range(KIMI_DECODE_STEPS):
+        lg, cache = api.decode_step(lm, cache, tok, pos)
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError("kimi decode logits are not finite")
+        tok = lg.argmax(dim=-1).to(torch.int32)
+    if fa_kernel.launches != before:
+        raise AssertionError("kimi decode launched flash_attention")
+    return {"arch": KIMI_ARCH, "reduced": True, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "n_experts": cfg.n_experts,
+            "head_dim": cfg.resolved_head_dim, "batch": B, "prompt": S,
+            "launches": launches["flash_attention"],
+            "bf16_launch_max_abs_err": bf16_checked.errs,
+            "f32_launch_max_abs_err": f32_checked.errs,
+            "launch_tolerance": {"bf16": [FLASH_BF16_RTOL, FLASH_BF16_ATOL],
+                                 "f32": FLASH_F32_TOL},
+            "bf16_flash_vs_plain_max_abs_err": bf16_err,
+            "bf16_flash_vs_plain_argmax_agree": bf16_agree,
+            "bf16_layer_by_layer": layers,
+            "f32_launches": f32_launches,
+            "f32_flash_vs_plain_max_abs_err": f32_err,
+            "f32_flash_vs_plain_argmax_agree": f32_agree,
+            "f32_atol": KIMI_F32_ATOL, "argmax_floor": SERVE_ARGMAX_FLOOR,
+            "decode_steps": KIMI_DECODE_STEPS}
+
+
 def _slot_bytes(cfg) -> int:
     """Bytes of one AdamW slot: parameters, m and v in float32."""
     return 3 * 4 * cfg.param_count() + 4
 
 
-def _train_cfg(free_bytes: int):
-    """llama3-8b at full width, depth cut to the largest of TRAIN_LAYERS
+def _train_cfg(arch: str, free_bytes: int):
+    """``arch`` at full width, depth cut to the largest of TRAIN_LAYERS
     whose two slots fit the free disk with a tenth to spare."""
-    full = get_config(TRAIN_ARCH)
+    full = get_config(arch)
     for n in TRAIN_LAYERS:
         cfg = dataclasses.replace(full, n_layers=n)
         if 2.2 * _slot_bytes(cfg) <= free_bytes:
@@ -1447,18 +1996,23 @@ def _mode_line(tr, res, peak, first_step: int) -> dict:
 def phase_train() -> None:
     """The ADCC trainer through its entry point at llama3-8b's full width:
     uninterrupted, crashed-and-recovered from a torn slot, and the
-    synchronous-checkpoint baseline, held bitwise against each other."""
-    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    try:
-        _phase_train(root)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    synchronous-checkpoint baseline, held bitwise against each other; then
+    deepseek-v2-lite-16b at full width, uninterrupted and crashed-and-
+    recovered."""
+    for arch, baselines in ((TRAIN_ARCH, True), (MOE_TRAIN_ARCH, False)):
+        root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+        try:
+            _train_arch(root, arch, baselines)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
 
 
-def _phase_train(root: str) -> None:
+def _train_arch(root: str, arch: str, baselines: bool) -> None:
+    """The train runs of one arch; with ``baselines`` also the run without
+    deterministic algorithms and the synchronous-checkpoint baseline."""
     free = shutil.disk_usage(root).free
-    emit({"phase": "train_disk", "dir_free_gb": free / 1e9})
-    cfg = _train_cfg(free)
+    emit({"phase": "train_disk", "arch": arch, "dir_free_gb": free / 1e9})
+    cfg = _train_cfg(arch, free)
     tcfg = TrainConfig(optimizer="adamw", remat="dots", seed=TRAIN_SEED)
     n_params = cfg.param_count()
     mm_kernel.launches = cv_kernel.launches = fa_kernel.launches = 0
@@ -1495,16 +2049,17 @@ def _phase_train(root: str) -> None:
                           "profile_one_step": profile})
     del tr, lm, opt, batch, trees
 
-    # the same run without deterministic algorithms: their cost
-    tr, res, _ = _run_trainer(cfg, tcfg, os.path.join(root, "nondet"),
-                              "none", TRAIN_STEPS, deterministic=False)
-    lines["none_nondeterministic"] = {
-        "median_step_s": _median(res.step_seconds[1:]),
-        "step_seconds": res.step_seconds,
-        "final_params_bitwise_equal": all(
-            torch.equal(p, final_none[n])
-            for n, p in tr._final_params.named_parameters())}
-    del tr
+    if baselines:
+        # the same run without deterministic algorithms: their cost
+        tr, res, _ = _run_trainer(cfg, tcfg, os.path.join(root, "nondet"),
+                                  "none", TRAIN_STEPS, deterministic=False)
+        lines["none_nondeterministic"] = {
+            "median_step_s": _median(res.step_seconds[1:]),
+            "step_seconds": res.step_seconds,
+            "final_params_bitwise_equal": all(
+                torch.equal(p, final_none[n])
+                for n, p in tr._final_params.named_parameters())}
+        del tr
 
     # 2. ADCC to step 3, tear the newest slot, recover and replay
     wd = os.path.join(root, "adcc")
@@ -1552,12 +2107,13 @@ def _phase_train(root: str) -> None:
     shutil.rmtree(wd, ignore_errors=True)
 
     # 4. the synchronous-checkpoint baseline
-    tr, res, peak = _run_trainer(cfg, tcfg, os.path.join(root, "sync"),
-                                 "sync", TRAIN_STEPS)
-    lines["sync"] = _mode_line(tr, res, peak, 0)
-    if res.losses != losses_none:
-        raise AssertionError(f"sync losses {res.losses} differ")
-    del tr
+    if baselines:
+        tr, res, peak = _run_trainer(cfg, tcfg, os.path.join(root, "sync"),
+                                     "sync", TRAIN_STEPS)
+        lines["sync"] = _mode_line(tr, res, peak, 0)
+        if res.losses != losses_none:
+            raise AssertionError(f"sync losses {res.losses} differ")
+        del tr
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1570,10 +2126,17 @@ def _phase_train(root: str) -> None:
     none_plain = lines["none"]["median_step_s"]
     adcc_steps = (first["step_seconds"][1:]
                   + second["step_seconds"][1:])
-    emit({"phase": "train", "arch": TRAIN_ARCH,
-          "depth_cut": f"{cfg.n_layers} of {get_config(TRAIN_ARCH).n_layers} "
+    if baselines:
+        lines["sync_overhead_share_slot_step"] = \
+            lines["sync"]["median_slot_step_s"] / none_plain - 1
+        lines["determinism_cost_share"] = \
+            none_plain / lines["none_nondeterministic"]["median_step_s"] - 1
+    emit({"phase": "train", "arch": arch,
+          "depth_cut": f"{cfg.n_layers} of {get_config(arch).n_layers} "
                        f"layers", "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "n_experts": cfg.n_experts, "moe_d_ff": cfg.moe_d_ff,
+          "use_mla": cfg.use_mla,
           "params": n_params, "slot_gb": _slot_bytes(cfg) / 1e9,
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "optimizer": tcfg.optimizer,
           "remat": tcfg.remat, "slot_every": TRAIN_SLOT_EVERY,
@@ -1590,10 +2153,6 @@ def _phase_train(root: str) -> None:
                                    + second["step_seconds"][1::2])
               / none_plain - 1,
               "all_steps": _median(adcc_steps) / none_plain - 1},
-          "sync_overhead_share_slot_step":
-              lines["sync"]["median_slot_step_s"] / none_plain - 1,
-          "determinism_cost_share":
-              none_plain / lines["none_nondeterministic"]["median_step_s"] - 1,
           "launches": launches, **lines})
 
 
@@ -1626,6 +2185,8 @@ def main() -> None:
         phase_device()
     if "serve" in want:
         phase_serve(records)
+    if "serve_moe" in want:
+        phase_serve_moe(records)
     if "train" in want:
         phase_train()
     if want != list(PHASES):

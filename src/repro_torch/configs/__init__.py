@@ -1,5 +1,5 @@
-"""Per-architecture configs of the port (one module per dense arch the
-port builds) and their base types."""
+"""Per-architecture configs of the port (one module per arch the port
+builds: dense and moe) and their base types."""
 
 from .base import SHAPES, ModelConfig, ShapeConfig
 

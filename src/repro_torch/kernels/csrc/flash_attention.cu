@@ -48,6 +48,14 @@
 //   of scores and a 4 x (hd/16) block of the output. It is off the serving
 //   path (the prefill runs bf16).
 //
+// Both are instantiated for tiles of 16, 32, 64 and 128 columns and take
+// any head dim that is a multiple of 8 up to 128: one off those widths
+// runs in the next of them with the columns beyond hd zero in q, k and v
+// (zero-filled as the tiles load), which adds nothing to q.k and gives
+// zero columns in p.v, and only the first hd output columns are stored.
+// The scale stays 1/sqrt(hd). Exact, at the cost of the padded columns'
+// work (hubert-xlarge's hd 80 runs in the 128 tile).
+//
 // Both read the inputs through their strides in (B, S, heads, hd) layout
 // (unit stride on hd): no transposed copies. Query head h reads key/value
 // head h / (H / KV), so the GQA repeat is never materialised. The ragged
@@ -96,17 +104,18 @@ constexpr int smem_bytes() {
     return ((BQ + 2 * BK) * (HD + PAD) + BQ * LDP) * static_cast<int>(sizeof(float));
 }
 
-// rows [r0, r0 + ROWS) of one head's (S, HD) slice, row stride rs, into a
-// (ROWS, HD + PAD) f32 tile; rows at or beyond S are zero
+// rows [r0, r0 + ROWS) of one head's (S, hd) slice, row stride rs, into a
+// (ROWS, HD + PAD) f32 tile; rows at or beyond S and columns at or beyond
+// hd (the tile width HD is the next instantiated one) are zero
 template <typename T, int HD, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          long long rs, int r0, int S, int tid) {
+                                          long long rs, int r0, int S, int hd, int tid) {
     constexpr int LD = HD + PAD;
 #pragma unroll 4
     for (int e = tid; e < ROWS * HD; e += NT) {
         const int r = e / HD, d = e % HD;
         const int s = r0 + r;
-        dst[r * LD + d] = s < S ? to_f32(src[static_cast<long long>(s) * rs + d]) : 0.f;
+        dst[r * LD + d] = s < S && d < hd ? to_f32(src[static_cast<long long>(s) * rs + d]) : 0.f;
     }
 }
 
@@ -116,14 +125,14 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 int S, int H, int groups, int causal, float scale,
+                 int S, int H, int hd, int groups, int causal, float scale,
                  long long qsb, long long qss, long long qsh,
                  long long ksb, long long kss, long long ksh,
                  long long vsb, long long vss, long long vsh)
 {
     constexpr int LD = HD + PAD;
     constexpr int DC = HD / TX;   // output columns per thread: 1, 2, 4 or 8
-    static_assert(HD % TX == 0 && HD % 4 == 0, "head_dim must be a multiple of 16");
+    static_assert(HD % TX == 0 && HD % 4 == 0, "tile width must be a multiple of 16");
 
     extern __shared__ __align__(16) float smem[];
     float* Qs = smem;             // (BQ, LD)
@@ -143,7 +152,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* kb = k + b * ksb + kvh * ksh;
     const T* vb = v + b * vsb + kvh * vsh;
 
-    load_tile<T, HD, BQ>(Qs, qb, qss, q0, S, tid);
+    load_tile<T, HD, BQ>(Qs, qb, qss, q0, S, hd, tid);
 
     float acc[RQ][DC];
     float m[RQ], l[RQ];
@@ -161,8 +170,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int kt = 0; kt < n_kt; ++kt) {
         const int k0 = kt * BK;
         __syncthreads();          // the previous tile's Ks, Vs, Ps are consumed
-        load_tile<T, HD, BK>(Ks, kb, kss, k0, S, tid);
-        load_tile<T, HD, BK>(Vs, vb, vss, k0, S, tid);
+        load_tile<T, HD, BK>(Ks, kb, kss, k0, S, hd, tid);
+        load_tile<T, HD, BK>(Vs, vb, vss, k0, S, hd, tid);
         __syncthreads();
 
         // scores of rows ty*RQ + i against keys tx + j*TX
@@ -265,24 +274,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
     }
 
-    // o (B, S, H, HD), contiguous
+    // o (B, S, H, hd), contiguous: the first hd of the tile's HD columns
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
         const int r = q0 + ty * RQ + i;
         if (r >= S) continue;
         const float denom = fmaxf(l[i], 1e-30f);
-        T* orow = o + ((static_cast<long long>(b) * S + r) * H + h) * HD;
+        T* orow = o + ((static_cast<long long>(b) * S + r) * H + h) * hd;
 #pragma unroll
         for (int e = 0; e < DC; ++e) {
             const int d = DC >= 4 ? (e / 4) * 4 * TX + tx * 4 + (e % 4) : tx * DC + e;
-            orow[d] = from_f32<T>(acc[i][e] / denom);
+            if (d < hd) orow[d] = from_f32<T>(acc[i][e] / denom);
         }
     }
 }
 
 template <typename T, int HD>
 int launch_hd(const void* q, const void* k, const void* v, void* o,
-              int B, int S, int H, int KV, int causal, float scale,
+              int B, int S, int H, int KV, int hd, int causal, float scale,
               long long qsb, long long qss, long long qsh,
               long long ksb, long long kss, long long ksh,
               long long vsb, long long vss, long long vsh, void* stream)
@@ -297,7 +306,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* o,
     const dim3 grid((S + BQ - 1) / BQ, B * H);
     flash_fwd_kernel<T, HD><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), S, H, H / KV, causal, scale,
+        static_cast<T*>(o), S, H, hd, H / KV, causal, scale,
         qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh);
     return static_cast<int>(cudaGetLastError());
 }
@@ -348,21 +357,24 @@ __device__ __forceinline__ int chunk_at(int r, int c) {
     return x ^ (((x >> 7) & Layout<HD>::MASK) << 4);
 }
 
-// rows [r0, r0 + ROWS) of one head's (S, HD) slice, row stride rs, into a
-// tile by 16-byte cp.async; rows at or beyond S are zero-filled
+// rows [r0, r0 + ROWS) of one head's (S, hd) slice, row stride rs, into a
+// tile by 16-byte cp.async; rows at or beyond S and the chunks at or beyond
+// hd (hd a multiple of 8, the tile width HD the next instantiated one) are
+// zero-filled
 template <int HD, int ROWS>
 __device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* __restrict__ src,
-                                          long long rs, int r0, int S, int tid) {
+                                          long long rs, int r0, int S, int hd, int tid) {
     constexpr int CH = HD / 8, N = ROWS * CH;
 #pragma unroll
     for (int i = 0; i < (N + NT - 1) / NT; ++i) {
         const int e = tid + i * NT;
         if (N % NT == 0 || e < N) {
             const int r = e / CH, c = e % CH, s = r0 + r;
-            const bf16* g = src + static_cast<long long>(s < S ? s : S - 1) * rs + c * 8;
+            const bool in = s < S && c * 8 < hd;
+            const bf16* g = src + static_cast<long long>(s < S ? s : S - 1) * rs + (in ? c * 8 : 0);
             asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                          :: "r"(smem_u32(dst + chunk_at<HD, ROWS>(r, c))), "l"(g),
-                            "r"(s < S ? 16 : 0));
+                            "r"(in ? 16 : 0));
         }
     }
 }
@@ -464,7 +476,7 @@ template <int HD>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
-                       int S, int H, int groups, int causal, float scale_log2,
+                       int S, int H, int hd, int groups, int causal, float scale_log2,
                        long long qsb, long long qss, long long qsh,
                        long long ksb, long long kss, long long ksh,
                        long long vsb, long long vss, long long vsh)
@@ -475,7 +487,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     constexpr int NS = BKV / 8;           // n8 column groups of the scores
     constexpr int KC = BKV / 16;          // k16 steps of p.v
     constexpr int QB = BQ * HD * 2, KB = BKV * HD * 2;   // tile bytes
-    static_assert(HD % 16 == 0 && HD <= 128, "head_dim 16, 32, 64 or 128");
+    static_assert(HD % 16 == 0 && HD <= 128, "tile width 16, 32, 64 or 128");
 
     extern __shared__ __align__(1024) unsigned char smem_raw[];
     unsigned char* Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -502,12 +514,12 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (causal) n_kt = min(n_kt, (q0 + BQ - 1) / BKV + 1);   // exact skip
 
     // Q with the first key tile, then one group per key tile
-    load_tile<HD, BQ>(Qs, qb, qss, q0, S, tid);
+    load_tile<HD, BQ>(Qs, qb, qss, q0, S, hd, tid);
 #pragma unroll
     for (int i = 0; i < AHEAD; ++i) {
         if (i < n_kt) {
-            load_tile<HD, BKV>(Ks + i * KB, kb, kss, i * BKV, S, tid);
-            load_tile<HD, BKV>(Vs + i * KB, vb, vss, i * BKV, S, tid);
+            load_tile<HD, BKV>(Ks + i * KB, kb, kss, i * BKV, S, hd, tid);
+            load_tile<HD, BKV>(Vs + i * KB, vb, vss, i * BKV, S, hd, tid);
         }
         asm volatile("cp.async.commit_group;\n" ::);
     }
@@ -521,8 +533,8 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kt = 0; kt < n_kt; ++kt) {
         if (kt + AHEAD < n_kt) {
             const int st = (kt + AHEAD) % STAGES;
-            load_tile<HD, BKV>(Ks + st * KB, kb, kss, (kt + AHEAD) * BKV, S, tid);
-            load_tile<HD, BKV>(Vs + st * KB, vb, vss, (kt + AHEAD) * BKV, S, tid);
+            load_tile<HD, BKV>(Ks + st * KB, kb, kss, (kt + AHEAD) * BKV, S, hd, tid);
+            load_tile<HD, BKV>(Vs + st * KB, vb, vss, (kt + AHEAD) * BKV, S, hd, tid);
         }
         asm volatile("cp.async.commit_group;\n" ::);
         asm volatile("cp.async.wait_group %0;\n" :: "n"(AHEAD));   // tile kt landed
@@ -641,17 +653,18 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     }
-    // o (B, S, H, HD), contiguous
+    // o (B, S, H, hd), contiguous: the first hd of the tile's HD columns
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
         const int r = i == 0 ? row_a : row_b;
         if (r >= S) continue;
         const float denom = fmaxf(l[i], 1e-30f);
-        bf16* orow = o + ((static_cast<long long>(b) * S + r) * H + h) * HD;
+        bf16* orow = o + ((static_cast<long long>(b) * S + r) * H + h) * hd;
 #pragma unroll
         for (int j = 0; j < HD / 8; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * t) =
-                __floats2bfloat162_rn(acc[4 * j + 2 * i] / denom, acc[4 * j + 2 * i + 1] / denom);
+            if (j * 8 < hd)
+                *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * t) =
+                    __floats2bfloat162_rn(acc[4 * j + 2 * i] / denom, acc[4 * j + 2 * i + 1] / denom);
     }
 }
 
@@ -659,7 +672,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HD>
 int launch_wgmma_hd(const void* q, const void* k, const void* v, void* o,
-                    int B, int S, int H, int KV, int causal, float scale,
+                    int B, int S, int H, int KV, int hd, int causal, float scale,
                     long long qsb, long long qss, long long qsh,
                     long long ksb, long long kss, long long ksh,
                     long long vsb, long long vss, long long vsh, void* stream)
@@ -675,7 +688,7 @@ int launch_wgmma_hd(const void* q, const void* k, const void* v, void* o,
     wg::flash_fwd_wgmma_kernel<HD><<<grid, wg::NT, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        S, H, H / KV, causal, scale_log2,
+        S, H, hd, H / KV, causal, scale_log2,
         qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh);
     return static_cast<int>(cudaGetLastError());
 }
@@ -684,16 +697,16 @@ int launch_wgmma_hd(const void* q, const void* k, const void* v, void* o,
 // cores (launch_wgmma_hd)
 template <typename T, int HD>
 int launch_type_hd(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KV, int causal, float scale,
+                   int B, int S, int H, int KV, int hd, int causal, float scale,
                    long long qsb, long long qss, long long qsh,
                    long long ksb, long long kss, long long ksh,
                    long long vsb, long long vss, long long vsh, void* stream)
 {
     if constexpr (sizeof(T) == 2)
-        return launch_wgmma_hd<HD>(q, k, v, o, B, S, H, KV, causal, scale,
+        return launch_wgmma_hd<HD>(q, k, v, o, B, S, H, KV, hd, causal, scale,
                                    qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, stream);
     else
-        return launch_hd<T, HD>(q, k, v, o, B, S, H, KV, causal, scale,
+        return launch_hd<T, HD>(q, k, v, o, B, S, H, KV, hd, causal, scale,
                                 qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, stream);
 }
 
@@ -706,17 +719,19 @@ int launch(const void* q, const void* k, const void* v, void* o,
 {
     if (B <= 0 || S <= 0 || H <= 0) return 0;
     if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (hd <= 0 || hd > 128 || hd % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    // the next instantiated tile width: its columns beyond hd are zero in q,
+    // k and v, which adds nothing to q.k and gives zero output columns in
+    // p.v, and only the first hd columns are stored
 #define FLASH_HD(N) \
-    case N: return launch_type_hd<T, N>(q, k, v, o, B, S, H, KV, causal, scale, \
-                                        qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, stream);
-    switch (hd) {
-        FLASH_HD(16)
-        FLASH_HD(32)
-        FLASH_HD(64)
-        FLASH_HD(128)
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    if (hd <= N) return launch_type_hd<T, N>(q, k, v, o, B, S, H, KV, hd, causal, scale, \
+                                             qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, stream);
+    FLASH_HD(16)
+    FLASH_HD(32)
+    FLASH_HD(64)
+    FLASH_HD(128)
 #undef FLASH_HD
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -724,8 +739,10 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // One entry point per input type. q is (B, S, H, hd) and k, v are
 // (B, S, KV, hd), each with element strides (batch, seq, head) and unit
 // stride on hd; o is (B, S, H, hd), contiguous, in the input type.
-// hd is 16, 32, 64 or 128. The bf16 kernel copies 16-byte chunks: its
-// inputs must be 16-byte aligned with strides that are multiples of 8.
+// hd is a multiple of 8 up to 128: the kernel runs the next tile width of
+// 16, 32, 64 and 128 with the columns beyond hd zero. The bf16 kernel
+// copies 16-byte chunks: its inputs must be 16-byte aligned with strides
+// that are multiples of 8.
 // Returns cudaGetLastError() of the launch.
 extern "C" {
 

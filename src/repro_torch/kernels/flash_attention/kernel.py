@@ -23,7 +23,7 @@ import torch
 from .. import _build
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain", "launches",
-           "HEAD_DIMS", "NEG_INF", "BF16_RTOL", "BF16_ATOL", "F32_TOL"]
+           "MAX_HEAD_DIM", "NEG_INF", "BF16_RTOL", "BF16_ATOL", "F32_TOL"]
 
 launches = 0
 
@@ -39,8 +39,10 @@ NEG_INF = -1e30
 BF16_RTOL, BF16_ATOL = 1.6e-2, 1e-5
 F32_TOL = 1e-5
 
-# head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+# head dims the kernel takes: multiples of 8 up to MAX_HEAD_DIM. It is
+# instantiated for tiles of 16, 32, 64 and 128 columns and runs any other
+# head dim in the next of them, the columns beyond hd zero-filled
+MAX_HEAD_DIM = 128
 
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
@@ -101,7 +103,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (a copy is made only where the kernel cannot read a tensor in place,
     see :func:`_readable`). Returns
     ``(B, S, H, hd)`` contiguous in q's dtype. Raises for mismatched
-    shapes, mixed or other dtypes, a head dim the kernel lacks, and a
+    shapes, mixed or other dtypes, a head dim that is not a multiple of 8
+    up to ``MAX_HEAD_DIM``, and a
     tensor that is not on the card or devices that differ."""
     global launches
     _check_shapes(q, k, v)
@@ -110,9 +113,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _ENTRY:
         raise TypeError(f"no flash_attention kernel for {q.dtype}/{k.dtype}/"
                         f"{v.dtype}; it takes one of float32, bfloat16")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"no flash_attention kernel for head_dim {hd}; "
-                         f"it takes {HEAD_DIMS}")
+    if hd % 8 or not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"no flash_attention kernel for head_dim {hd}; it "
+                         f"takes multiples of 8 from 8 to {MAX_HEAD_DIM}")
     if not (q.is_cuda and k.is_cuda and v.is_cuda
             and q.device == k.device == v.device):
         raise ValueError("flash_attention_cuda needs q, k, v on one CUDA "

@@ -1,9 +1,9 @@
 """Input builders of the port: concrete batches for prefill.
 
-The JAX package's ``launch/specs.py::make_batch`` for the dense family,
-drawn from an explicit ``torch.Generator`` on the generator's device.
-The audio and vlm branches and the dry-run stand-ins come with their
-families (ROADMAP A10b.6).
+The JAX package's ``launch/specs.py::make_batch`` for the token families
+(dense and moe), drawn from an explicit ``torch.Generator`` on the
+generator's device. The audio and vlm branches and the dry-run stand-ins
+come with their families (ROADMAP A10b.6d, A11).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ __all__ = ["make_batch"]
 def make_batch(cfg: ModelConfig, batch: int, seq: int,
                generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """{"tokens", "labels"}: (batch, seq) int32, uniform over the vocab."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"make_batch for family {cfg.family!r} is "
                                   f"not ported yet (ROADMAP A10b.6)")
     kw = dict(generator=generator, device=generator.device,

@@ -6,15 +6,23 @@ stacked along a leading ``n_layers`` dim:
 
   embed (padded_vocab, D)          norm_f (D,)      head (D, padded_vocab)
   layers/attn/{wq,wk,wv,wo}        (L, in, out)     [head absent when tied]
-  layers/ffn/{w_gate,w_up,w_down}  (L, in, out)
+  layers/ffn/{w_gate,w_up,w_down}  (L, in, out)     [dense family]
   layers/norm_attn, layers/norm_ffn (L, D)
+
+and for the moe family, in place of ``ffn``, the router and the expert
+stacks ``layers/moe/{router,w_down,w_gate,w_up}`` (L, D, E) and
+(L, E, in, out), with the shared experts' ``layers/shared/{w_down,
+w_gate,w_up}`` (L, in, out); with MLA, ``layers/attn/{w_dkv,w_kr,w_uk,
+w_uv,wo,wq}`` (L, in, out). A leaf's path is its port parameter's name
+with the dots as slashes and the norms' ``.gamma`` dropped.
 
 :func:`params_from_reference` takes that tree as nested dicts of numpy
 arrays (the caller converts; nothing here imports the reference) and
 loads it into an :class:`~repro_torch.models.lm.LM`. Both packages use
 the ``(in, out)`` layout of ``x @ w``, so nothing is transposed.
-:func:`cache_from_reference` does the same for a decode cache
-``{"k", "v"}`` of shape (L, B, max_len, KV, hd).
+:func:`cache_from_reference` does the same for a decode cache: GQA's
+``{"k", "v"}`` of shape (L, B, max_len, KV, hd), MLA's ``{"c_kv",
+"k_rope"}`` of shape (L, B, max_len, r) and (L, B, max_len, qk_rope).
 
 The other direction, :func:`params_to_reference`, gives the port's LM as
 that stacked tree of numpy arrays; :func:`opt_to_reference` and
@@ -27,6 +35,7 @@ ledger record written by either package reads in the other.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
@@ -36,20 +45,20 @@ from ..configs.base import ModelConfig
 from ..device import get_device
 from ..optim.adamw import AdafactorState, AdamWState
 from . import layers as L
-from .lm import LM
+from .lm import LM, Block, init_cache
 
 __all__ = ["params_from_reference", "cache_from_reference",
            "params_to_reference", "opt_to_reference", "opt_from_reference",
            "opt_tree", "reference_paths", "reference_tree", "nest", "tree_items",
            "to_host"]
 
-# the reference's per-layer leaves (under "layers/") -> the port's
-# attribute path inside one block
-_LAYER_LEAVES = {"attn/wk": "attn.wk", "attn/wo": "attn.wo",
-                 "attn/wq": "attn.wq", "attn/wv": "attn.wv",
-                 "ffn/w_down": "ffn.w_down", "ffn/w_gate": "ffn.w_gate",
-                 "ffn/w_up": "ffn.w_up", "norm_attn": "norm_attn.gamma",
-                 "norm_ffn": "norm_ffn.gamma"}
+@functools.lru_cache(maxsize=None)
+def _layer_leaves(cfg: ModelConfig) -> Dict[str, str]:
+    """The reference's per-layer leaves (under "layers/") -> the port's
+    attribute path inside one block, read off a block on the meta
+    device: "attn/wq" -> "attn.wq", "norm_ffn" -> "norm_ffn.gamma"."""
+    names = [n for n, _ in Block(cfg, device="meta").named_parameters()]
+    return {n.removesuffix(".gamma").replace(".", "/"): n for n in names}
 
 
 def reference_paths(cfg: ModelConfig) -> List[Tuple[str, List[str]]]:
@@ -61,7 +70,7 @@ def reference_paths(cfg: ModelConfig) -> List[Tuple[str, List[str]]]:
         top["head"] = "head"
     out = [(k, [v]) for k, v in top.items()]
     out += [(f"layers/{k}", [f"layers.{i}.{v}" for i in range(cfg.n_layers)])
-            for k, v in _LAYER_LEAVES.items()]
+            for k, v in _layer_leaves(cfg).items()]
     return sorted(out)
 
 
@@ -175,47 +184,53 @@ def _set(param: torch.Tensor, value, where: str) -> None:
 def params_from_reference(cfg: ModelConfig, tree: Mapping,
                           device=None) -> LM:
     """An LM on ``device`` (default :func:`repro_torch.get_device`) holding
-    the reference's parameters ``tree``. Raises on a missing or extra
-    leaf and on any shape that differs."""
+    the reference's parameters ``tree``. Raises ValueError on a leaf the
+    configuration does not have and on any shape that differs, KeyError
+    on a missing leaf (as a torn slot gives)."""
     lm = LM(cfg, device=device if device is not None else get_device())
-    layers = tree["layers"]
-    expect = {"embed", "layers", "norm_f"} | (
-        set() if cfg.tie_embeddings else {"head"})
-    if set(tree) != expect:
-        raise ValueError(f"reference tree has {sorted(tree)}, expected "
-                         f"{sorted(expect)}")
-    _set(lm.embed, tree["embed"], "embed")
-    _set(lm.norm_f.gamma, tree["norm_f"], "norm_f")
-    if lm.head is not None:
-        _set(lm.head, tree["head"], "head")
-    for i, blk in enumerate(lm.layers):
-        for name in ("wq", "wk", "wv", "wo"):
-            _set(getattr(blk.attn, name), layers["attn"][name][i],
-                 f"layers/attn/{name}[{i}]")
-        for name in ("w_gate", "w_up", "w_down"):
-            _set(getattr(blk.ffn, name), layers["ffn"][name][i],
-                 f"layers/ffn/{name}[{i}]")
-        _set(blk.norm_attn.gamma, layers["norm_attn"][i],
-             f"layers/norm_attn[{i}]")
-        _set(blk.norm_ffn.gamma, layers["norm_ffn"][i],
-             f"layers/norm_ffn[{i}]")
+    flat = dict(tree_items(tree))
+    paths = reference_paths(cfg)
+    expect = [path for path, _ in paths]
+    extra = sorted(set(flat) - set(expect))
+    if extra:
+        raise ValueError(f"reference tree has {extra}, beyond the expected "
+                         f"{expect}")
+    missing = [path for path in expect if path not in flat]
+    if missing:
+        raise KeyError(f"reference tree lacks {missing}")
+    params = dict(lm.named_parameters())
+    for path, names in paths:
+        if not path.startswith("layers/"):
+            _set(params[names[0]], flat[path], path)
+            continue
+        stacked = np.asarray(flat[path])
+        if stacked.shape[:1] != (len(names),):
+            raise ValueError(f"{path}: shape {stacked.shape}, expected "
+                             f"{len(names)} stacked layers")
+        for i, name in enumerate(names):
+            _set(params[name], stacked[i], f"{path}[{i}]")
     return lm
 
 
 def cache_from_reference(cfg: ModelConfig, cache: Mapping,
                          device=None) -> Dict[str, torch.Tensor]:
-    """The reference's decode cache {"k", "v"} (L, B, max_len, KV, hd) as
-    tensors of the compute type on ``device``."""
+    """The reference's decode cache as tensors of the compute type on
+    ``device``: GQA's {"k", "v"} (L, B, max_len, KV, hd), MLA's {"c_kv"
+    (L, B, max_len, r), "k_rope" (L, B, max_len, qk_rope)}."""
     dev = device if device is not None else get_device()
     dt = L.dtype_of(cfg.compute_dtype)
+    want, _ = init_cache(cfg, 1, 1, device="meta")
+    if sorted(cache) != sorted(want):
+        raise ValueError(f"cache has {sorted(cache)}, expected "
+                         f"{sorted(want)}")
     out = {}
-    for name in ("k", "v"):
+    for name, like in want.items():
         a = np.asarray(cache[name])
-        if a.ndim != 5 or a.shape[0] != cfg.n_layers \
-                or a.shape[3:] != (cfg.n_kv_heads, cfg.resolved_head_dim):
-            raise ValueError(f"cache {name}: shape {a.shape} is not (L={cfg.n_layers}, "
-                             f"B, max_len, KV={cfg.n_kv_heads}, "
-                             f"hd={cfg.resolved_head_dim})")
+        if a.ndim != like.ndim or a.shape[0] != cfg.n_layers \
+                or a.shape[3:] != like.shape[3:]:
+            raise ValueError(f"cache {name}: shape {a.shape} is not "
+                             f"(L={cfg.n_layers}, B, max_len) + "
+                             f"{tuple(like.shape[3:])}")
         out[name] = _to_tensor(a, dt, dev)
     return out
 

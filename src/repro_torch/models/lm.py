@@ -1,11 +1,14 @@
-"""The dense transformer LM: training loss, prefill forward (plain or
-flash attention) and KV-cache decode.
+"""The transformer LM of the dense and moe families: training loss,
+prefill forward (plain or flash attention) and KV-cache decode.
 
-The JAX package's ``models/lm.py`` for the ``dense`` family, as an
-``nn.Module``: embedding table, a ``ModuleList`` of blocks (attention +
-SwiGLU, pre-norm), final norm, and an output head that is the embedding
-table itself when ``cfg.tie_embeddings``. The reference stacks its
-layers and scans over them; here the layers are a Python loop.
+The JAX package's ``models/lm.py`` for the ``dense`` and ``moe`` families,
+as an ``nn.Module``: embedding table, a ``ModuleList`` of pre-norm blocks,
+final norm, and an output head that is the embedding table itself when
+``cfg.tie_embeddings``. A block's attention is GQA (``layers.Attention``)
+or, with ``cfg.use_mla``, latent attention (``mla.MLA``); its FFN is a
+SwiGLU, or with ``cfg.n_experts`` a mixture of experts (``moe.MoE``) plus
+a shared SwiGLU of ``moe_d_ff * n_shared_experts``. The reference stacks
+its layers and scans over them; here the layers are a Python loop.
 
   LM(cfg).init_(generator)              random weights at the reference's scales
   abstract_init(cfg)                    the LM on the ``meta`` device (shapes only)
@@ -18,8 +21,9 @@ Training and serving share one layer loop (:func:`forward_train`, which
 records gradients); ``forward`` runs it under ``torch.no_grad``. Tables
 are ``cfg.padded_vocab`` wide and logits are sliced back to
 ``cfg.vocab_size``. ``remat`` ("none", "full", "dots") chooses what the
-backward pass recomputes and changes no value. The moe / mla / vlm /
-audio branches come with their families (ROADMAP A10b.6).
+backward pass recomputes and changes no value. The vlm and audio branches
+come with their families (ROADMAP A10b.6d); the ssm and hybrid families
+have models of their own (A10b.6b, 6c).
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from . import layers as L
+from . import mla as MLA
+from . import moe as MOE
 
 __all__ = ["LM", "Block", "check_ported", "abstract_init", "forward",
            "forward_train", "cross_entropy", "loss_fn", "init_cache",
@@ -42,29 +48,46 @@ REMAT = ("none", "full", "dots")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a configuration outside the port's dense slice."""
-    if cfg.family != "dense" or cfg.use_mla or cfg.n_experts \
-            or cfg.mrope_sections or not cfg.embed_inputs:
+    """Raise for a configuration outside the families the port builds."""
+    if cfg.family not in ("dense", "moe") or cfg.mrope_sections \
+            or not cfg.embed_inputs or (cfg.family == "dense"
+                                        and cfg.n_experts):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (mla={cfg.use_mla}, "
-            f"experts={cfg.n_experts}) is not ported yet; the port builds "
-            f"the dense family only (ROADMAP A10b.6 ports the others)")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
+            f"builds the dense and moe families (GQA or MLA attention), and "
+            f"audio, vlm, ssm and hybrid are still to come (ROADMAP "
+            f"A10b.6b-d)")
 
 
 class Block(nn.Module):
-    """One pre-norm layer: h + attn(norm(h)), then h + ffn(norm(h))."""
+    """One pre-norm layer: h + attn(norm(h)), then h + ffn(norm(h)).
+    ``attn`` is MLA or GQA; the FFN is ``moe`` (+ ``shared`` where the
+    config has shared experts) or ``ffn``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         dt = L.dtype_of(cfg.param_dtype)
-        self.attn = L.Attention(cfg, device=device)
-        self.ffn = L.SwiGLU(cfg, device=device)
+        self.attn = (MLA.MLA(cfg, device=device) if cfg.use_mla
+                     else L.Attention(cfg, device=device))
+        if cfg.n_experts:
+            self.moe = MOE.MoE(cfg, device=device)
+            if cfg.n_shared_experts:
+                self.shared = L.SwiGLU(
+                    cfg, d_ff=cfg.moe_d_ff * cfg.n_shared_experts,
+                    device=device)
+        else:
+            self.ffn = L.SwiGLU(cfg, device=device)
         self.norm_attn = L.RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
         self.norm_ffn = L.RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
 
+    def init_(self, generator: torch.Generator) -> None:
+        for name in ("attn", "moe", "shared", "ffn"):
+            if hasattr(self, name):
+                getattr(self, name).init_(generator)
+
 
 class LM(nn.Module):
-    """Parameters of a dense LM. Weights are created on ``device`` without
+    """Parameters of a dense or moe LM. Weights are created on ``device`` without
     values; :meth:`init_` draws them, ``models.carry`` loads them."""
 
     def __init__(self, cfg: ModelConfig, device=None):
@@ -88,8 +111,7 @@ class LM(nn.Module):
         with torch.no_grad():
             self.embed.normal_(0.0, 0.02, generator=generator)
             for blk in self.layers:
-                blk.attn.init_(generator)
-                blk.ffn.init_(generator)
+                blk.init_(generator)
             if self.head is not None:
                 L.dense_init_(self.head, generator)
         return self
@@ -105,16 +127,37 @@ def abstract_init(cfg: ModelConfig) -> LM:
 # layer body
 # ---------------------------------------------------------------------------
 
+def _ffn_block(cfg: ModelConfig, lp: Block, h_norm: torch.Tensor,
+               mesh=None) -> torch.Tensor:
+    if not cfg.n_experts:
+        return L.swiglu_apply(lp.ffn, h_norm)
+    B, S, D = h_norm.shape
+    tokens = h_norm.reshape(B * S, D)
+    if mesh is None:
+        y = MOE.moe_apply_dense(cfg, lp.moe, tokens)
+    else:
+        y = MOE.moe_apply_ep(cfg, lp.moe, tokens, mesh)
+    if cfg.n_shared_experts:
+        y = y + L.swiglu_apply(lp.shared, tokens)
+    return y.reshape(B, S, D)
+
+
 def _layer_apply(cfg: ModelConfig, lp: Block, h: torch.Tensor,
                  positions: torch.Tensor, mesh=None,
                  cache: Optional[Dict[str, torch.Tensor]] = None,
                  cache_index: Optional[int] = None, flash: bool = False):
     h_norm = lp.norm_attn(h)
-    attn_out, new_cache = L.attention_apply(
-        cfg, lp.attn, h_norm, positions, cache=cache,
-        cache_index=cache_index, mesh=mesh, flash=flash)
+    if cfg.use_mla:
+        # MLA has no flash branch, in the reference as here
+        attn_out, new_cache = MLA.mla_apply(
+            cfg, lp.attn, h_norm, positions, cache=cache,
+            cache_index=cache_index)
+    else:
+        attn_out, new_cache = L.attention_apply(
+            cfg, lp.attn, h_norm, positions, cache=cache,
+            cache_index=cache_index, mesh=mesh, flash=flash)
     h = h + attn_out
-    h = h + L.swiglu_apply(lp.ffn, lp.norm_ffn(h))
+    h = h + _ffn_block(cfg, lp, lp.norm_ffn(h), mesh)
     return h, new_cache
 
 
@@ -216,10 +259,12 @@ def loss_fn(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """(cache, axes): k/v (n_layers, B, max_len, KV, hd) zeros in the
-    compute type."""
+    """(cache, axes), zeros in the compute type: k/v (n_layers, B, max_len,
+    KV, hd) for GQA; for MLA the latent c_kv (n_layers, B, max_len, r) and
+    k_rope (n_layers, B, max_len, qk_rope)."""
     # one layer's cache on the meta device gives shapes and types only
-    one, one_axes = L.attention_cache_init(cfg, batch, max_len, device="meta")
+    one_init = MLA.mla_cache_init if cfg.use_mla else L.attention_cache_init
+    one, one_axes = one_init(cfg, batch, max_len, device="meta")
     cache = {name: torch.zeros((cfg.n_layers,) + t.shape, dtype=t.dtype,
                                device=device) for name, t in one.items()}
     axes = {name: ("layers",) + ax for name, ax in one_axes.items()}
@@ -230,15 +275,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
 def decode_step(cfg: ModelConfig, lm: LM, cache: Dict[str, torch.Tensor],
                 tokens: torch.Tensor, pos, mesh=None):
     """One decode step. tokens: (B, 1) int; pos: int — the current cache
-    length. Writes the new keys and values into ``cache`` in place and
-    returns (logits (B, 1, vocab), cache)."""
+    length. Writes the new keys and values (for MLA the latent and the
+    RoPE key) into ``cache`` in place and returns (logits (B, 1, vocab),
+    cache)."""
     dt = L.dtype_of(cfg.compute_dtype)
     pos = int(pos)
     h = lm.embed[tokens].to(dt)
     B = tokens.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
     for i, lp in enumerate(lm.layers):
-        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+        layer_cache = {name: c[i] for name, c in cache.items()}
         h, _ = _layer_apply(cfg, lp, h, positions, mesh, cache=layer_cache,
                             cache_index=pos)
     h = lm.norm_f(h)

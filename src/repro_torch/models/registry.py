@@ -1,9 +1,10 @@
 """Architecture registry of the port: arch id -> (ModelConfig, ModelApi).
 
 The same entry points as the JAX package's ``models/registry.py``, for
-the four dense architectures the port builds so far. The other archs of
-the reference raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+the architectures the port builds so far: the four of the dense family,
+and deepseek-v2-lite-16b (MoE with latent attention) and kimi-k2-1t-a32b
+(MoE with GQA) of the moe family. The other archs of the reference raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
     api = build_model("llama3-8b")
     lm = api.init(generator)                     # weights on get_device()
@@ -38,16 +39,16 @@ ARCHS = {
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
     "llama3-8b": "repro_torch.configs.llama3_8b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
 }
 
 # archs of the reference that the port does not build yet -> what ports them
 NOT_PORTED = {
-    "deepseek-v2-lite-16b": "ROADMAP A10b.6 (moe and mla families)",
-    "kimi-k2-1t-a32b": "ROADMAP A10b.6 (moe and mla families)",
-    "hubert-xlarge": "ROADMAP A10b.6 (audio family)",
-    "qwen2-vl-2b": "ROADMAP A10b.6 (vlm family, M-RoPE)",
-    "zamba2-1.2b": "ROADMAP A10b.6 (hybrid family)",
-    "mamba2-130m": "ROADMAP A10b.6 (ssm family)",
+    "hubert-xlarge": "ROADMAP A10b.6d (audio family)",
+    "qwen2-vl-2b": "ROADMAP A10b.6d (vlm family, M-RoPE)",
+    "zamba2-1.2b": "ROADMAP A10b.6c (hybrid family)",
+    "mamba2-130m": "ROADMAP A10b.6b (ssm family)",
 }
 
 

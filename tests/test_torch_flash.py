@@ -31,6 +31,8 @@ SHAPES = [
     (1, 64, 4, 4, 32),     # MHA
     (2, 72, 4, 2, 32),     # S not a multiple of the kernel's 64-row tile
     (1, 40, 8, 2, 128),    # head_dim 128 as in every dense config
+    (1, 64, 4, 2, 80),     # head dims off the kernel's tile widths:
+    (2, 72, 4, 2, 48),     # hubert-xlarge's 80, and 48
 ]
 
 _TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
@@ -139,10 +141,20 @@ def test_kernel_wrapper_raises_on_what_it_does_not_take():
     kv = torch.zeros(1, 16, 2, 32)
     with pytest.raises(ValueError, match="CUDA"):
         fa_kernel.flash_attention_cuda(q, kv, kv)
-    with pytest.raises(ValueError, match="head_dim 48"):
-        fa_kernel.flash_attention_cuda(torch.zeros(1, 16, 4, 48),
-                                       torch.zeros(1, 16, 2, 48),
-                                       torch.zeros(1, 16, 2, 48))
+    # head dims: multiples of 8 up to 128 (48 and 80 pass the check and
+    # fail only for lying on the CPU); 136 and 44 are refused by name
+    for hd in (48, 80):
+        with pytest.raises(ValueError, match="CUDA"):
+            fa_kernel.flash_attention_cuda(torch.zeros(1, 16, 4, hd),
+                                           torch.zeros(1, 16, 2, hd),
+                                           torch.zeros(1, 16, 2, hd))
+    for hd in (136, 44):
+        with pytest.raises(ValueError,
+                           match=f"head_dim {hd}; it takes multiples of 8 "
+                                 f"from 8 to 128"):
+            fa_kernel.flash_attention_cuda(torch.zeros(1, 16, 4, hd),
+                                           torch.zeros(1, 16, 2, hd),
+                                           torch.zeros(1, 16, 2, hd))
     with pytest.raises(TypeError, match="float64"):
         fa_kernel.flash_attention_cuda(q.double(), kv.double(), kv.double())
     with pytest.raises(TypeError):

@@ -129,14 +129,16 @@ def test_shapes_and_llama_width():
             cfg.d_ff, cfg.vocab_size, cfg.rope_theta) == \
         (4096, 32, 8, 128, 14336, 128_256, 500_000.0)
     assert get_config("phi4-mini-3.8b").padded_vocab == 200_192
-    assert list_archs() == DENSE
+    assert list_archs() == sorted(DENSE + ["deepseek-v2-lite-16b",
+                                           "kimi-k2-1t-a32b"])
 
 
 @pytest.mark.parametrize("arch", sorted(NOT_PORTED))
 def test_registry_raises_for_archs_not_ported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         get_config(arch)
-    with pytest.raises(NotImplementedError, match="dense family only"):
+    with pytest.raises(NotImplementedError,
+                       match="builds the dense and moe families"):
         build_model(ref_get_config(arch))
 
 
@@ -375,6 +377,7 @@ def test_model_slice_imports_with_jax_and_repro_blocked():
         "import repro_torch.configs, repro_torch.models, repro_torch.launch\n"
         "import repro_torch.models.lm, repro_torch.models.layers\n"
         "import repro_torch.models.carry, repro_torch.launch.specs\n"
+        "import repro_torch.models.moe, repro_torch.models.mla\n"
         "import repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.kernels.flash_attention.ref\n"
         "from repro_torch.models import get_config, list_archs\n"
@@ -404,7 +407,10 @@ def test_model_slice_sources_name_neither_jax_nor_repro():
             if name.endswith(".py"):
                 files.append(os.path.join(base, sub, name))
     files.append(os.path.join(base, "kernels", "csrc", "flash_attention.cu"))
-    assert len(files) >= 17
+    names = [os.path.basename(f) for f in files]
+    assert {"moe.py", "mla.py", "deepseek_v2_lite_16b.py",
+            "kimi_k2_1t_a32b.py"} <= set(names)
+    assert len(files) >= 21
     for path in files:
         with open(path, encoding="utf-8") as fh:
             text = fh.read()
