@@ -7,6 +7,7 @@ with itself on the card.
     python3 chip_smoke.py --phases card,build,kernels   # some, in order, to debug
     python3 chip_smoke.py --phases card,train           # the trainer alone
     python3 chip_smoke.py --phases card,serve_moe       # the moe family alone
+    python3 chip_smoke.py --phases card,serve_ssm       # ssm and hybrid
 
 Phases, each printing one JSON line:
 
@@ -71,6 +72,19 @@ Phases, each printing one JSON line:
            flash output equals its plain output on the same input (tokens
            whose routing may flip at a near-tie excepted, under 5 %); a
            few decode steps
+  serve_ssm the recurrent families at full width and depth, bf16
+           compute, seeded weights on the card: mamba2-130m (ssm) and
+           zamba2-1.2b (hybrid: Mamba2 layers and one shared attention
+           block at 7 sites), each a prefill of 2 prompts x 4096 tokens;
+           a teacher-forced decode of 64 prompt tokens held to the
+           prefill's logits, and again in float32 compute against a
+           float32 forward; 32 greedy decode steps; a profiler split of
+           one prefill (projections, conv, SSD within chunks, the scan
+           across chunks, attention, casts); long_500k's decode shape
+           (batch 1, a step at position 524 287 and one at 16) against a
+           cache of seeded values, zamba2's 30.1 GB, beside its bytes
+           bound; and no launch of any kernel of the port (neither family
+           reaches one, in the reference as here)
   train    the ADCC trainer (``ADCCTrainer.run``) at llama3-8b's full width
            with depth cut to 2 of 32 layers (1 where the disk cannot hold
            two slots), random weights from a seeded generator on the card,
@@ -85,9 +99,14 @@ Phases, each printing one JSON line:
            copies, the writer's and the recovery's seconds, peak memory,
            a profiled step and the cost of deterministic algorithms. Then
            deepseek-v2-lite-16b at full width, 2 of 27 layers (19 GB slots),
-           the same batch and options: 6 uninterrupted steps, and the ADCC
+           the same batch and options, its MoE layers on the trainer's
+           one-card mesh (the expert-parallel path with capacity drops,
+           whose share is printed): 6 uninterrupted steps, and the ADCC
            crash with a torn newest slot whose recovery must end bitwise
-           equal
+           equal; then the same for mamba2-130m at full width and depth
+           (1.5 GB slots) and zamba2-1.2b at full width and depth (14 GB
+           slots) at 2 x 2048, the length its shared block's plain
+           attention leaves room for
 
 Any failed check raises, so the exit code is non-zero and no result line
 is printed. Without a CUDA card the script exits at once with code 2.
@@ -143,18 +162,22 @@ from repro_torch.core.acc_state import ChecksumLedger  # noqa: E402
 from repro_torch.launch.specs import make_batch  # noqa: E402
 from repro_torch.launch.steps import tree_checksums  # noqa: E402
 from repro_torch.launch.train import ADCCTrainer  # noqa: E402
-from repro_torch.models.carry import opt_tree, reference_tree  # noqa: E402
+from repro_torch.models.carry import (opt_tree, reference_tree,  # noqa: E402
+                                      tree_items)
 from repro_torch.models import build_model, get_config  # noqa: E402
+from repro_torch.configs.base import SHAPES  # noqa: E402
+from repro_torch.models import hybrid as hybrid_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
 from repro_torch.models import lm as lm_mod  # noqa: E402
 from repro_torch.models import mla as mla_mod  # noqa: E402
+from repro_torch.models import mamba2 as mamba2_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.scenarios import (CrashPlan, TornSpec,  # noqa: E402
                                    deterministic_cell_dict, sweep)
 from repro_torch.scenarios import batched_engine, driver  # noqa: E402
 
 PHASES = ("card", "build", "kernels", "sweep", "sharded", "kv", "device",
-          "serve", "serve_moe", "train")
+          "serve", "serve_moe", "serve_ssm", "train")
 
 # tensor-core instructions counted in each kernel's SASS, and the kernels
 # that must have them: library -> (name in the kernel's symbol, kinds)
@@ -233,6 +256,32 @@ KIMI_SEED = 17
 # the whole model: 2.5 x the reading of 8.3e-6 on an H100.
 KIMI_F32_ATOL = 2.1e-5
 
+# the recurrent families' serving phase: mamba2-130m (ssm) and zamba2-1.2b
+# (hybrid) at full width and depth, prompts 2 x 4096
+SSM_ARCHS = ("mamba2-130m", "zamba2-1.2b")
+SSM_BATCH, SSM_PROMPT = 2, 4096
+SSM_DECODE_STEPS = 32
+SSM_TEACHER_TOKENS = 64
+SSM_SEED = 18
+# Teacher-forced decode (the recurrent update, one token a step) against
+# the prefill's chunked SSD, bf16. The two paths round at other points
+# (the prefill's chunk products in float32 over 128 positions, the
+# decode's state update a token at a time; cuBLAS sums 2 rows and 8192
+# in other orders). On the CPU, mamba2-130m at full width (prompt 128,
+# 32 tokens) gave 0.087 on logits up to 5.2 and 97 % argmax agreement,
+# zamba2-1.2b at 8 of its 38 layers 0.012 and 100 %: the bound is 3.5 x
+# the larger reading, the floor 12 points under the lower agreement.
+SSM_TEACHER_ATOL = 0.3
+SSM_TEACHER_ARGMAX_FLOOR = 0.85
+# The same in float32 compute on the same weights, against a float32
+# forward of the 64 tokens: the CPU gave 9.8e-6 (mamba2-130m) and 3.3e-6
+# (zamba2, 8 layers); the bound is 10 x the larger.
+SSM_F32_TEACHER_ATOL = 1e-4
+# long_500k's decode shape: batch 1, a step at the last position
+LONG_SHAPE = SHAPES["long_500k"]
+LONG_SHORT_POS = 16
+LONG_REPS = 5
+
 # the train phase: the ADCC trainer at llama3-8b's full width with depth
 # cut to 2 of 32 layers (1 where the disk cannot hold two slots of 2),
 # AdamW, remat "dots", batch 2 x the train_4k sequence length
@@ -242,8 +291,20 @@ TRAIN_BATCH, TRAIN_SEQ = 2, 4096
 TRAIN_STEPS, TRAIN_CRASH_RUN = 6, 4
 TRAIN_SLOT_EVERY, TRAIN_SLOTS = 2, 2
 TRAIN_SEED = 15
-# and deepseek-v2-lite-16b at full width, 2 of 27 layers, the same batch
+# and deepseek-v2-lite-16b at full width, 2 of 27 layers, the same batch,
+# its MoE layers on the trainer's one-card mesh (the expert-parallel path
+# with capacity drops, as the reference's trainer runs them)
 MOE_TRAIN_ARCH = "deepseek-v2-lite-16b"
+# and the recurrent families at full width and depth: mamba2-130m at the
+# same batch; zamba2-1.2b at 2 x 2048, since its shared block's plain
+# attention keeps two float32 (B, 32, S, S) tensors for the backward pass
+# at each of its 7 sites (60 GB at 2 x 4096)
+ZAMBA_TRAIN_SEQ = 2048
+# (arch, depth cuts to try or None for full depth, sequence, baselines)
+TRAIN_RUNS = ((TRAIN_ARCH, TRAIN_LAYERS, TRAIN_SEQ, True),
+              (MOE_TRAIN_ARCH, TRAIN_LAYERS, TRAIN_SEQ, False),
+              ("mamba2-130m", None, TRAIN_SEQ, False),
+              ("zamba2-1.2b", None, ZAMBA_TRAIN_SEQ, False))
 
 # flash_attention against its plain version: bf16 two bf16 ulps of the
 # value (rtol 1.6e-2, atol 1e-5), f32 1e-5; the reasons stand beside the
@@ -1916,21 +1977,304 @@ def _serve_kimi() -> dict:
             "decode_steps": KIMI_DECODE_STEPS}
 
 
+def _launch_counts() -> dict:
+    return {"abft_matmul": mm_kernel.launches,
+            "tile_sums": cv_kernel.launches,
+            "flash_attention": fa_kernel.launches}
+
+
+def _teacher_forced(api, lm, tokens, ref) -> tuple:
+    """Teacher-forced decode of ``tokens`` (B, n) from an empty cache,
+    against ``ref`` logits (B, n, vocab): (max abs err, argmax share)."""
+    B, n = tokens.shape
+    cache, _ = api.init_cache(B, n)
+    outs = []
+    for t in range(n):
+        lg, cache = api.decode_step(lm, cache, tokens[:, t:t + 1], t)
+        outs.append(lg)
+    dec = torch.cat(outs, dim=1)
+    if dec.shape != ref.shape or not bool(torch.isfinite(dec).all()):
+        raise AssertionError(f"teacher-forced decode: {tuple(dec.shape)} "
+                             f"against {tuple(ref.shape)}, or not finite")
+    return _logits_err(dec, ref), _argmax_share(dec, ref)
+
+
+def _ssm_prefill_split(fn) -> dict:
+    """Device time of one prefill of the recurrent families by group, from
+    torch.profiler: each kernel is attributed through the CPU operations
+    that launched it. Weight and activation casts (``aten::to`` /
+    ``aten::copy_``) wherever they run; in a Mamba2 layer the causal conv
+    (``_causal_conv``), the SSD within chunks (``_ssd_intra``), the scan
+    across chunks (``_ssd_chunk_scan``), the in / out projections (its
+    products outside those) and its other elementwise work; the shared
+    attention block's attention (``attention_apply``); everything else
+    (embedding, norms, residuals, the shared SwiGLU, head)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    spots = {"mamba": (mamba2_mod, "mamba2_apply"),
+             "conv": (mamba2_mod, "_causal_conv"),
+             "ssd_intra": (mamba2_mod, "_ssd_intra"),
+             "chunk_scan": (mamba2_mod, "_ssd_chunk_scan"),
+             "attention": (layers_mod, "attention_apply")}
+    real = {k: getattr(m, a) for k, (m, a) in spots.items()}
+
+    def ranged(label, f):
+        def run(*a, **kw):
+            with record_function(label):
+                return f(*a, **kw)
+        return run
+
+    for k, (m, a) in spots.items():
+        setattr(m, a, ranged(f"split::{k}", real[k]))
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.stop()
+    finally:
+        for k, (m, a) in spots.items():
+            setattr(m, a, real[k])
+    groups = dict.fromkeys(("casts", "conv", "ssd_intra", "chunk_scan",
+                            "projections", "mamba_other", "attention",
+                            "other"), 0.0)
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CPU or not evt.kernels:
+            continue
+        names, node = [], evt
+        while node is not None:
+            names.append(node.name)
+            node = node.cpu_parent
+        sec = sum(k.duration for k in evt.kernels) / 1e6
+        if any(n in ("aten::to", "aten::_to_copy", "aten::copy_")
+               for n in names):
+            groups["casts"] += sec
+        elif "split::conv" in names:
+            groups["conv"] += sec
+        elif "split::ssd_intra" in names:
+            groups["ssd_intra"] += sec
+        elif "split::chunk_scan" in names:
+            groups["chunk_scan"] += sec
+        elif "split::attention" in names:
+            groups["attention"] += sec
+        elif "split::mamba" in names:
+            groups["projections" if any(n in ("aten::mm", "aten::matmul")
+                                        for n in names)
+                   else "mamba_other"] += sec
+        else:
+            groups["other"] += sec
+    busy = sum(groups.values())
+    if busy <= 0:
+        raise AssertionError("the profiler attributed no device time")
+    return {"wall_s": wall, "device_busy_s": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall),
+            "device_s_by_group": groups}
+
+
+def _timed_steps(step, reps: int) -> list:
+    """Host seconds of ``reps`` calls of ``step()``, each ending in a
+    synchronize, after one call not timed."""
+    step()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def _long_decode(cfg, api, lm, param_bytes: int) -> dict:
+    """long_500k's decode shape: batch 1, one step at its last position
+    (and one at ``LONG_SHORT_POS``) against a cache whose contents are
+    seeded values, as if a prompt of that length had been decoded. The
+    bound is the bytes the step must read (the whole cache, which the
+    attention reads up to the position, and the weights) at the card's
+    memory rate."""
+    dev = torch.device("cuda")
+    n = LONG_SHAPE.seq_len
+    gen = torch.Generator(device=dev).manual_seed(SSM_SEED + 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cache, _ = api.init_cache(LONG_SHAPE.global_batch, n)
+    for _, t in tree_items(cache):
+        t.normal_(0.0, 0.5, generator=gen)
+    torch.cuda.synchronize()
+    fill_seconds = time.perf_counter() - t0
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for _, t in tree_items(cache))
+    tok = torch.randint(0, cfg.vocab_size, (LONG_SHAPE.global_batch, 1),
+                        generator=gen, device=dev, dtype=torch.int32)
+    out = {}
+
+    def step(pos):
+        out["logits"] = api.decode_step(lm, cache, tok, pos)[0]
+
+    times = {f"pos_{pos}": _timed_steps(lambda: step(pos), LONG_REPS)
+             for pos in (LONG_SHORT_POS, n - 1)}
+    logits = out["logits"]
+    if logits.shape != (LONG_SHAPE.global_batch, 1, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"long_500k decode logits {tuple(logits.shape)}"
+                             f" not finite or misshapen")
+    med = {k: _median(v) for k, v in times.items()}
+    bound_s = (cache_bytes + param_bytes) / PEAK_BYTES_PER_S
+    del cache, out
+    return {"shape": LONG_SHAPE.name, "batch": LONG_SHAPE.global_batch,
+            "positions": [LONG_SHORT_POS, n - 1],
+            "cache_gb": cache_bytes / 1e9, "cache_fill_seconds": fill_seconds,
+            "step_seconds": times, "median_step_ms":
+                {k: 1e3 * v for k, v in med.items()},
+            "bound_ms": 1e3 * bound_s,
+            "bound_share_at_last_pos": bound_s / med[f"pos_{n - 1}"],
+            "logit_absmax": float(logits.float().abs().max()),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_serve_ssm() -> None:
+    """mamba2-130m (ssm) and zamba2-1.2b (hybrid) at full width and depth
+    through the port's model API, random weights from seeded generators
+    on the card. Neither family launches a kernel of the port: Mamba2 is
+    torch ops, and the hybrid's shared attention takes the plain branch,
+    as the reference's (no flash branch)."""
+    for arch in SSM_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _serve_recurrent(arch)
+
+
+def _serve_recurrent(arch: str) -> None:
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    api = build_model(cfg)
+    B, S, n = SSM_BATCH, SSM_PROMPT, SSM_TEACHER_TOKENS
+    t0 = time.perf_counter()
+    lm = api.init(torch.Generator(device=dev).manual_seed(SSM_SEED))
+    batch = make_batch(cfg, B, S,
+                       torch.Generator(device=dev).manual_seed(SSM_SEED + 1))
+    torch.cuda.synchronize()
+    init_seconds = time.perf_counter() - t0
+    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+
+    # counts to zero just before the model's path, read after all of it
+    mm_kernel.launches = cv_kernel.launches = fa_kernel.launches = 0
+    t0 = time.perf_counter()
+    logits = api.forward(lm, batch)
+    torch.cuda.synchronize()
+    prefill_first_seconds = time.perf_counter() - t0
+    if logits.shape != (B, S, cfg.vocab_size) \
+            or logits.dtype != torch.bfloat16 \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                             f"{logits.dtype}, or not finite")
+    del logits
+    t0 = time.perf_counter()
+    logits = api.forward(lm, batch)
+    torch.cuda.synchronize()
+    prefill_seconds = time.perf_counter() - t0
+    logit_absmax = float(logits.abs().max())
+    prefix = logits[:, :n].clone()
+    del logits
+    torch.cuda.empty_cache()
+
+    # teacher-forced decode against the prefill (bf16), then in float32
+    # compute against a float32 forward of the same tokens
+    tokens = batch["tokens"][:, :n]
+    teacher_err, teacher_agree = _teacher_forced(api, lm, tokens, prefix)
+    if teacher_err > SSM_TEACHER_ATOL \
+            or teacher_agree < SSM_TEACHER_ARGMAX_FLOOR:
+        raise AssertionError(f"{arch}: teacher-forced decode differs from "
+                             f"the prefill by {teacher_err} (bound "
+                             f"{SSM_TEACHER_ATOL}), argmax agreement "
+                             f"{teacher_agree} (floor "
+                             f"{SSM_TEACHER_ARGMAX_FLOOR})")
+    fapi = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    f32_fwd = fapi.forward(lm, {"tokens": tokens})
+    f32_err, f32_agree = _teacher_forced(fapi, lm, tokens, f32_fwd)
+    if f32_fwd.dtype != torch.float32 or f32_err > SSM_F32_TEACHER_ATOL:
+        raise AssertionError(f"{arch}: float32 teacher-forced decode differs"
+                             f" from the forward by {f32_err} (bound "
+                             f"{SSM_F32_TEACHER_ATOL})")
+    del prefix, f32_fwd
+
+    # greedy decode from the first prompt token
+    cache, _ = api.init_cache(B, S)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for _, t in tree_items(cache))
+    tok = batch["tokens"][:, :1]
+    generated = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pos in range(SSM_DECODE_STEPS):
+        lg, cache = api.decode_step(lm, cache, tok, pos)
+        tok = lg.argmax(dim=-1).to(torch.int32)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_seconds = time.perf_counter() - t0
+    gen = torch.cat(generated, dim=1)
+    if gen.shape != (B, SSM_DECODE_STEPS) or int(gen.min()) < 0 \
+            or int(gen.max()) >= cfg.vocab_size:
+        raise AssertionError(f"greedy decode: tokens {tuple(gen.shape)}")
+    del cache
+    split = _ssm_prefill_split(lambda: api.forward(lm, batch))
+    peak = torch.cuda.max_memory_allocated()
+    long = _long_decode(cfg, api, lm, param_bytes)
+    launches = _launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"{arch} launched {launches}: neither family "
+                             f"reaches a kernel of the port")
+    del lm, batch
+    emit({"phase": "serve_ssm", "arch": arch, "family": cfg.family,
+          "n_layers": cfg.n_layers, "depth_cut": None,
+          "d_model": cfg.d_model, "ssm_state": cfg.ssm_state,
+          "ssm_heads": mamba2_mod.mamba2_dims(cfg)[1],
+          "ssm_chunk": cfg.ssm_chunk,
+          "shared_attention_sites": (len(hybrid_mod.segments(cfg))
+                                     if cfg.family == "hybrid" else 0),
+          "vocab": cfg.vocab_size, "param_dtype": cfg.param_dtype,
+          "compute_dtype": cfg.compute_dtype, "params": cfg.param_count(),
+          "param_gb": param_bytes / 1e9, "init_seconds": init_seconds,
+          "batch": B, "prompt": S, "launches": launches,
+          "prefill_first_seconds": prefill_first_seconds,
+          "prefill_seconds": prefill_seconds,
+          "prefill_tokens_per_s": B * S / prefill_seconds,
+          "logit_absmax": logit_absmax,
+          "teacher_tokens": n, "teacher_max_abs_err": teacher_err,
+          "teacher_argmax_agree": teacher_agree,
+          "teacher_atol": SSM_TEACHER_ATOL,
+          "teacher_argmax_floor": SSM_TEACHER_ARGMAX_FLOOR,
+          "teacher_f32_max_abs_err": f32_err,
+          "teacher_f32_argmax_agree": f32_agree,
+          "teacher_f32_atol": SSM_F32_TEACHER_ATOL,
+          "decode_steps": SSM_DECODE_STEPS, "decode_seconds": decode_seconds,
+          "decode_ms_per_step": 1e3 * decode_seconds / SSM_DECODE_STEPS,
+          "decode_cache_gb": cache_bytes / 1e9,
+          "peak_memory_gb": peak / 1e9, "prefill_split": split,
+          "long_500k": long})
+
+
 def _slot_bytes(cfg) -> int:
     """Bytes of one AdamW slot: parameters, m and v in float32."""
     return 3 * 4 * cfg.param_count() + 4
 
 
-def _train_cfg(arch: str, free_bytes: int):
-    """``arch`` at full width, depth cut to the largest of TRAIN_LAYERS
-    whose two slots fit the free disk with a tenth to spare."""
+def _train_cfg(arch: str, free_bytes: int, layers):
+    """``arch`` at full width, depth cut to the largest of ``layers``
+    whose two slots fit the free disk with a tenth to spare (full depth
+    where ``layers`` is None)."""
     full = get_config(arch)
-    for n in TRAIN_LAYERS:
+    for n in layers or (full.n_layers,):
         cfg = dataclasses.replace(full, n_layers=n)
         if 2.2 * _slot_bytes(cfg) <= free_bytes:
             return cfg
     raise AssertionError(f"{free_bytes / 1e9:.1f} GB free for the slots: "
-                         f"not enough for two of {TRAIN_LAYERS[-1]} layer")
+                         f"not enough for two of {arch} at {n} layers")
 
 
 def _chain_ratios(records) -> list:
@@ -1955,12 +2299,12 @@ def _median(xs) -> float:
     return float(statistics.median(xs)) if xs else float("nan")
 
 
-def _run_trainer(cfg, tcfg, workdir, mode, steps, **kw) -> tuple:
+def _run_trainer(cfg, tcfg, workdir, mode, steps, seq, **kw) -> tuple:
     """(trainer, result, peak device bytes) of one ``run(steps)``."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    tr = ADCCTrainer(cfg, tcfg, workdir, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+    tr = ADCCTrainer(cfg, tcfg, workdir, batch=TRAIN_BATCH, seq=seq,
                      slot_every=TRAIN_SLOT_EVERY, n_slots=TRAIN_SLOTS,
                      mode=mode, **kw)
     res = tr.run(steps, log_every=0)
@@ -1997,31 +2341,41 @@ def phase_train() -> None:
     """The ADCC trainer through its entry point at llama3-8b's full width:
     uninterrupted, crashed-and-recovered from a torn slot, and the
     synchronous-checkpoint baseline, held bitwise against each other; then
-    deepseek-v2-lite-16b at full width, uninterrupted and crashed-and-
-    recovered."""
-    for arch, baselines in ((TRAIN_ARCH, True), (MOE_TRAIN_ARCH, False)):
+    deepseek-v2-lite-16b at full width, mamba2-130m and zamba2-1.2b at
+    full width and depth, each uninterrupted and crashed-and-recovered."""
+    for arch, layers, seq, baselines in TRAIN_RUNS:
         root = tempfile.mkdtemp(prefix="chip_smoke_train_")
         try:
-            _train_arch(root, arch, baselines)
+            _train_arch(root, arch, layers, seq, baselines)
         finally:
             shutil.rmtree(root, ignore_errors=True)
 
 
-def _train_arch(root: str, arch: str, baselines: bool) -> None:
+def _train_arch(root: str, arch: str, layers, seq: int,
+                baselines: bool) -> None:
     """The train runs of one arch; with ``baselines`` also the run without
     deterministic algorithms and the synchronous-checkpoint baseline."""
     free = shutil.disk_usage(root).free
     emit({"phase": "train_disk", "arch": arch, "dir_free_gb": free / 1e9})
-    cfg = _train_cfg(arch, free)
+    cfg = _train_cfg(arch, free, layers)
     tcfg = TrainConfig(optimizer="adamw", remat="dots", seed=TRAIN_SEED)
     n_params = cfg.param_count()
     mm_kernel.launches = cv_kernel.launches = fa_kernel.launches = 0
+    moe_mod.EP_COUNTS.update(assignments=0, dropped=0)
     lines = {}
 
     # 1. uninterrupted, no fault tolerance
     tr, res, peak = _run_trainer(cfg, tcfg, os.path.join(root, "none"),
-                                 "none", TRAIN_STEPS)
+                                 "none", TRAIN_STEPS, seq)
+    if tr.info["mesh"] is None or tr.info["mesh"].size != 1:
+        raise AssertionError(f"the trainer's step has mesh "
+                             f"{tr.info['mesh']}, not one card")
     lines["none"] = _mode_line(tr, res, peak, 0)
+    tr_mesh = tr.info["mesh"]
+    ep = {k: int(v) for k, v in moe_mod.EP_COUNTS.items()}
+    if bool(cfg.n_experts) != bool(ep["assignments"]):
+        raise AssertionError(f"expert-parallel path counts {ep} for "
+                             f"{cfg.n_experts} experts")
     final_none = {n: p.clone() for n, p in tr._final_params.named_parameters()}
     losses_none = res.losses
     # where a step's time goes: the forward and backward pass alone, a
@@ -2052,7 +2406,8 @@ def _train_arch(root: str, arch: str, baselines: bool) -> None:
     if baselines:
         # the same run without deterministic algorithms: their cost
         tr, res, _ = _run_trainer(cfg, tcfg, os.path.join(root, "nondet"),
-                                  "none", TRAIN_STEPS, deterministic=False)
+                                  "none", TRAIN_STEPS, seq,
+                                  deterministic=False)
         lines["none_nondeterministic"] = {
             "median_step_s": _median(res.step_seconds[1:]),
             "step_seconds": res.step_seconds,
@@ -2063,7 +2418,7 @@ def _train_arch(root: str, arch: str, baselines: bool) -> None:
 
     # 2. ADCC to step 3, tear the newest slot, recover and replay
     wd = os.path.join(root, "adcc")
-    tr, res, peak = _run_trainer(cfg, tcfg, wd, "adcc", TRAIN_CRASH_RUN)
+    tr, res, peak = _run_trainer(cfg, tcfg, wd, "adcc", TRAIN_CRASH_RUN, seq)
     first = _mode_line(tr, res, peak, 0)
     if res.losses != losses_none[:TRAIN_CRASH_RUN]:
         raise AssertionError(f"adcc losses {res.losses} differ from the "
@@ -2079,7 +2434,7 @@ def _train_arch(root: str, arch: str, baselines: bool) -> None:
     arr = np.load(os.path.join(d, leaf))
     np.save(os.path.join(d, leaf), arr + 1000.0)
     del tr, arr
-    tr, res, peak = _run_trainer(cfg, tcfg, wd, "adcc", TRAIN_STEPS)
+    tr, res, peak = _run_trainer(cfg, tcfg, wd, "adcc", TRAIN_STEPS, seq)
     second = _mode_line(tr, res, peak, 2)
     checks = tr.recovery_checks
     if res.resumed_from != 1 or len(checks) != 2 \
@@ -2109,7 +2464,7 @@ def _train_arch(root: str, arch: str, baselines: bool) -> None:
     # 4. the synchronous-checkpoint baseline
     if baselines:
         tr, res, peak = _run_trainer(cfg, tcfg, os.path.join(root, "sync"),
-                                     "sync", TRAIN_STEPS)
+                                     "sync", TRAIN_STEPS, seq)
         lines["sync"] = _mode_line(tr, res, peak, 0)
         if res.losses != losses_none:
             raise AssertionError(f"sync losses {res.losses} differ")
@@ -2117,9 +2472,7 @@ def _train_arch(root: str, arch: str, baselines: bool) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    launches = {"abft_matmul": mm_kernel.launches,
-                "tile_sums": cv_kernel.launches,
-                "flash_attention": fa_kernel.launches}
+    launches = _launch_counts()
     if any(launches.values()):
         raise AssertionError(f"training launched {launches}: its loss runs "
                              f"plain attention, as the reference's")
@@ -2131,14 +2484,20 @@ def _train_arch(root: str, arch: str, baselines: bool) -> None:
             lines["sync"]["median_slot_step_s"] / none_plain - 1
         lines["determinism_cost_share"] = \
             none_plain / lines["none_nondeterministic"]["median_step_s"] - 1
+    full_depth = get_config(arch).n_layers
     emit({"phase": "train", "arch": arch,
-          "depth_cut": f"{cfg.n_layers} of {get_config(arch).n_layers} "
-                       f"layers", "n_layers": cfg.n_layers,
+          "depth_cut": (f"{cfg.n_layers} of {full_depth} layers"
+                        if cfg.n_layers != full_depth else None),
+          "n_layers": cfg.n_layers, "family": cfg.family,
           "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
           "n_experts": cfg.n_experts, "moe_d_ff": cfg.moe_d_ff,
           "use_mla": cfg.use_mla,
           "params": n_params, "slot_gb": _slot_bytes(cfg) / 1e9,
-          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "optimizer": tcfg.optimizer,
+          "batch": TRAIN_BATCH, "seq": seq, "optimizer": tcfg.optimizer,
+          "mesh": dict(tr_mesh.shape),
+          "ep_assignments_first_run": ep["assignments"],
+          "ep_dropped_share_first_run": (ep["dropped"] / ep["assignments"]
+                                         if ep["assignments"] else None),
           "remat": tcfg.remat, "slot_every": TRAIN_SLOT_EVERY,
           "n_slots": TRAIN_SLOTS, "losses": losses_none,
           "recovery_checks": [list(c) for c in checks],
@@ -2187,6 +2546,8 @@ def main() -> None:
         phase_serve(records)
     if "serve_moe" in want:
         phase_serve_moe(records)
+    if "serve_ssm" in want:
+        phase_serve_ssm()
     if "train" in want:
         phase_train()
     if want != list(PHASES):

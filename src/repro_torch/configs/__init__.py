@@ -1,5 +1,5 @@
 """Per-architecture configs of the port (one module per arch the port
-builds: dense and moe) and their base types."""
+builds: dense, moe, ssm and hybrid) and their base types."""
 
 from .base import SHAPES, ModelConfig, ShapeConfig
 

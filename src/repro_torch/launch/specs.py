@@ -1,7 +1,7 @@
 """Input builders of the port: concrete batches for prefill.
 
 The JAX package's ``launch/specs.py::make_batch`` for the token families
-(dense and moe), drawn from an explicit ``torch.Generator`` on the
+(dense, moe, ssm and hybrid), drawn from an explicit ``torch.Generator`` on the
 generator's device. The audio and vlm branches and the dry-run stand-ins
 come with their families (ROADMAP A10b.6d, A11).
 """
@@ -20,7 +20,7 @@ __all__ = ["make_batch"]
 def make_batch(cfg: ModelConfig, batch: int, seq: int,
                generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """{"tokens", "labels"}: (batch, seq) int32, uniform over the vocab."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"make_batch for family {cfg.family!r} is "
                                   f"not ported yet (ROADMAP A10b.6)")
     kw = dict(generator=generator, device=generator.device,

@@ -12,13 +12,19 @@ so the ledger obeys ``cks_params[t] == cks_params[t-1] + cks_updates[t]``
 (core/acc_state.py). A stacked layer leaf's entry is the sum of the
 port's per-layer sums.
 
-As in the reference, every float32 weight of two or more dimensions is
-cast to the compute type *once*, before the forward pass, and the
-gradient is taken with respect to that copy; 1-D weights (norms) stay
-float32. The embedding's gather backward and, for tied tables, the sum
-of the gather and head gradients therefore accumulate in the compute
-type before the cast back, as they do in the reference. The copy is a
-second LM whose bf16 parameters are refilled every step.
+As in the reference, float32 weights are cast to the compute type
+*once*, before the forward pass, and the gradient is taken with respect
+to that copy. The reference casts every float32 leaf of two or more
+dimensions of its *stacked* tree, so the copy casts exactly the
+parameters whose leaf that is: every per-layer parameter (its stacked
+leaf has one more dimension: the layers' norms, and the ssm family's
+``A_log``, ``dt_bias`` and ``D_skip``, enter the forward in the compute
+type) and every other parameter of two or more dimensions; the final
+norm and the hybrid family's shared-block norms stay float32. The
+embedding's gather backward and, for tied tables, the sum of the gather
+and head gradients therefore accumulate in the compute type before the
+cast back, as they do in the reference. The copy is a second model of
+the same class whose parameters are refilled every step.
 
 With ``deterministic`` (the default) the step runs under
 ``torch.use_deterministic_algorithms(True)``: on CUDA the embedding and
@@ -30,7 +36,10 @@ bitwise equal to an uninterrupted run. The setting is restored after
 the step; torch's filling of uninitialised memory is kept off, since
 the step reads none.
 
-Sharding (``rules``, ``build_opt_shardings``) comes with ROADMAP A10b.7.
+``rules`` is ``None`` or a mesh of one card (``launch.mesh``), which the
+step hands to ``loss_fn`` as the reference's hands it its mesh: the moe
+family's layers then take the expert-parallel path. Sharding over a
+larger mesh (``build_opt_shardings``) comes with ROADMAP A10b.7.
 """
 
 from __future__ import annotations
@@ -46,9 +55,9 @@ from ..configs.base import TrainConfig
 from ..core.acc_state import leaf_checksum
 from ..models import layers as L
 from ..models.carry import opt_tree, reference_paths, reference_tree, tree_items
-from ..models.lm import LM, init_cache
-from ..models.registry import ModelApi
+from ..models.registry import ModelApi, family_module
 from ..optim import compress_decompress, make_optimizer
+from .mesh import one_card
 
 __all__ = ["build_train_step", "build_serve_step", "tree_checksums",
            "build_opt_shardings"]
@@ -89,18 +98,22 @@ def deterministic_algorithms(on: bool) -> Iterator[None]:
         det.fill_uninitialized_memory = prev[2]
 
 
-def _compute_copy(lm: LM) -> LM:
-    """An LM beside ``lm`` whose float32 weights of two or more
-    dimensions are in the compute type, every parameter a leaf that
-    requires grad. Values are filled by the step."""
+def _compute_copy(lm: nn.Module) -> nn.Module:
+    """A model of ``lm``'s class beside it whose float32 parameters are in
+    the compute type where the reference's ``to_compute`` casts their
+    leaf (per-layer parameters, and others of two or more dimensions),
+    every parameter a leaf that requires grad. Values are filled by the
+    step."""
     cfg = lm.cfg
     cdt = L.dtype_of(cfg.compute_dtype)
-    out = LM(cfg, device="meta")
+    out = type(lm)(cfg, device="meta")
     for name, p in lm.named_parameters():
-        dt = cdt if p.dtype == torch.float32 and p.ndim >= 2 else p.dtype
+        cast = p.dtype == torch.float32 and (name.startswith("layers.")
+                                             or p.ndim >= 2)
         mod, _, attr = name.rpartition(".")
         setattr(out.get_submodule(mod) if mod else out, attr,
-                nn.Parameter(torch.empty(p.shape, dtype=dt, device=p.device)))
+                nn.Parameter(torch.empty(p.shape, dtype=cdt if cast
+                                         else p.dtype, device=p.device)))
     return out
 
 
@@ -127,10 +140,11 @@ def build_train_step(api: ModelApi, tcfg: TrainConfig, rules=None, *,
     ``info`` holds ``remat``, ``optimizer`` and
     ``value_and_grad(lm, batch) -> (loss, grads)``, the step's own
     gradient path.
+    ``rules``: ``None`` or a mesh of one card, passed to ``loss_fn``;
+    ``info["mesh"]`` holds it.
     ``batch_template`` pins input shardings in the reference and is
     accepted for its interface only."""
-    if rules is not None:
-        raise NotImplementedError(f"build_train_step(rules=...): {_SHARDING}")
+    mesh = one_card(rules)
     cfg = api.cfg
     init_fn, opt_update = make_optimizer(tcfg)
     use_compression = tcfg.grad_compression == "int8"
@@ -139,7 +153,7 @@ def build_train_step(api: ModelApi, tcfg: TrainConfig, rules=None, *,
     # sees the reference's leaves; AdamW is elementwise and sees the
     # port's parameters as they are (no stacking copy)
     stacked = tcfg.optimizer == "adafactor"
-    box: Dict[str, LM] = {}
+    box: Dict[str, nn.Module] = {}
 
     def opt_view(by_name: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if not stacked:
@@ -159,10 +173,10 @@ def build_train_step(api: ModelApi, tcfg: TrainConfig, rules=None, *,
                 out[names[0]] = upd[path]
         return out
 
-    def opt_init(lm: LM):
+    def opt_init(lm: nn.Module):
         return init_fn(opt_view(dict(lm.named_parameters())))
 
-    def value_and_grad(lm: LM, batch):
+    def value_and_grad(lm: nn.Module, batch):
         """(loss, {parameter name: float32 gradient}) through the compute
         copy, as the step takes them."""
         params = dict(lm.named_parameters())
@@ -173,12 +187,12 @@ def build_train_step(api: ModelApi, tcfg: TrainConfig, rules=None, *,
         with torch.no_grad():
             for n, p in params.items():
                 cparams[n].copy_(p)
-        loss = api.loss_fn(cc, batch, remat=tcfg.remat)
+        loss = api.loss_fn(cc, batch, mesh, remat=tcfg.remat)
         gl = torch.autograd.grad(loss, list(cparams.values()))
         return loss.detach(), {n: g.to(params[n].dtype)
                                for n, g in zip(cparams, gl)}
 
-    def train_step(lm: LM, opt_state, err_state, batch, generator):
+    def train_step(lm: nn.Module, opt_state, err_state, batch, generator):
         if not donate:
             lm, opt_state, err_state = (copy.deepcopy(lm), _clone(opt_state),
                                         _clone(err_state))
@@ -209,7 +223,7 @@ def build_train_step(api: ModelApi, tcfg: TrainConfig, rules=None, *,
                 }
         return lm, opt_state, err_state, metrics, checksums
 
-    info = {"remat": tcfg.remat, "optimizer": tcfg.optimizer,
+    info = {"remat": tcfg.remat, "optimizer": tcfg.optimizer, "mesh": mesh,
             "value_and_grad": value_and_grad}
     return train_step, info, opt_init
 
@@ -221,14 +235,15 @@ def build_serve_step(api: ModelApi, rules=None, *, batch: int, max_len: int,
     ``decode_step``, which writes the cache in place (what the
     reference's donation of the cache amounts to). ``info`` holds the
     cache's shapes and logical axes."""
-    if rules is not None:
-        raise NotImplementedError(f"build_serve_step(rules=...): {_SHARDING}")
+    mesh = one_card(rules)
     cfg = api.cfg
 
     def serve_step(lm, cache, tokens, pos):
-        return api.decode_step(lm, cache, tokens, pos)
+        return api.decode_step(lm, cache, tokens, pos, mesh)
 
-    shapes, axes = init_cache(cfg, batch, max_len, device="meta")
-    info = {"cache_shapes": {k: tuple(v.shape) for k, v in shapes.items()},
+    shapes, axes = family_module(cfg).init_cache(cfg, batch, max_len,
+                                                 device="meta")
+    info = {"cache_shapes": {k: tuple(v.shape) for k, v in
+                             tree_items(shapes)},
             "cache_axes": axes}
     return serve_step, info

@@ -45,6 +45,7 @@ from ..data.pipeline import SyntheticPipeline
 from ..device import get_device
 from ..models.registry import build_model, get_config
 from ..optim import init_error_state
+from .mesh import one_card, single_device_mesh
 from .steps import build_train_step
 
 __all__ = ["ADCCTrainer", "StragglerMonitor", "TrainerResult", "main",
@@ -100,13 +101,16 @@ class ADCCTrainer:
                  mode: str = "adcc", deterministic: bool = True):
         """mode: 'adcc' (paper technique) | 'sync' (traditional blocking
         checkpoint baseline) | 'none' (no fault tolerance).
+        ``mesh``: ``None`` (a mesh of one card is built, as the reference
+        builds its one-device mesh) or a mesh of one card; larger meshes
+        raise (ROADMAP A10b.7).
         ``deterministic``: run each step with deterministic algorithms
         (needed for bitwise recovery on the card; launch/steps.py)."""
         if mode not in ("adcc", "sync", "none"):
             raise ValueError(f"mode {mode!r}: adcc, sync or none")
-        if mesh is not None:
-            raise NotImplementedError("ADCCTrainer(mesh=...): sharding is "
-                                      "not ported yet (ROADMAP A10b.7)")
+        # the reference's trainer builds a one-device mesh when given none,
+        # and its step runs the model on it (MoE: the expert-parallel path)
+        self.mesh = one_card(mesh) or single_device_mesh()
         self.cfg, self.tcfg = cfg, tcfg
         self.workdir = workdir
         self.batch, self.seq = batch, seq
@@ -117,7 +121,8 @@ class ADCCTrainer:
         self.api = build_model(cfg)
         self.pipeline = SyntheticPipeline(cfg, batch, seq, seed=tcfg.seed)
         self.step_fn, self.info, self.opt_init = build_train_step(
-            self.api, tcfg, donate=True, deterministic=deterministic)
+            self.api, tcfg, self.mesh, donate=True,
+            deterministic=deterministic)
         self.ledger = ChecksumLedger(os.path.join(workdir, "ledger.jsonl"))
         self.store = SlotStore(os.path.join(workdir, "slots"), n_slots)
         self.writer = AsyncSlotWriter(self.store) if mode == "adcc" else None

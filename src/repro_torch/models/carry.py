@@ -13,28 +13,38 @@ and for the moe family, in place of ``ffn``, the router and the expert
 stacks ``layers/moe/{router,w_down,w_gate,w_up}`` (L, D, E) and
 (L, E, in, out), with the shared experts' ``layers/shared/{w_down,
 w_gate,w_up}`` (L, in, out); with MLA, ``layers/attn/{w_dkv,w_kr,w_uk,
-w_uv,wo,wq}`` (L, in, out). A leaf's path is its port parameter's name
-with the dots as slashes and the norms' ``.gamma`` dropped.
+w_uv,wo,wq}`` (L, in, out). The ssm family's layers are
+``layers/mamba/{A_log,D_skip,conv_b,conv_w,dt_bias,in_proj,out_proj}``
+and ``layers/norm``; the hybrid family adds the one shared attention
+block, not stacked: ``shared/attn/{wq,wk,wv,wo}``, ``shared/ffn/...``,
+``shared/norm_attn`` and ``shared/norm_ffn``. A leaf's path is its port
+parameter's name with the dots as slashes and the norms' ``.gamma``
+dropped (and the layer's index dropped from a stacked leaf).
 
 :func:`params_from_reference` takes that tree as nested dicts of numpy
 arrays (the caller converts; nothing here imports the reference) and
-loads it into an :class:`~repro_torch.models.lm.LM`. Both packages use
-the ``(in, out)`` layout of ``x @ w``, so nothing is transposed.
-:func:`cache_from_reference` does the same for a decode cache: GQA's
-``{"k", "v"}`` of shape (L, B, max_len, KV, hd), MLA's ``{"c_kv",
-"k_rope"}`` of shape (L, B, max_len, r) and (L, B, max_len, qk_rope).
+loads it into the family's module (``registry.model_class``). Both
+packages use the ``(in, out)`` layout of ``x @ w``, so nothing is
+transposed. :func:`cache_from_reference` does the same for a decode
+cache: GQA's ``{"k", "v"}`` of shape (L, B, max_len, KV, hd), MLA's
+``{"c_kv", "k_rope"}`` of shape (L, B, max_len, r) and (L, B, max_len,
+qk_rope), the ssm family's ``{"state", "conv"}`` of shape (L, B, H, hd,
+N) and (L, B, W - 1, C), the hybrid family's ``{"attn": {"k", "v"},
+"ssm": {"state", "conv"}}`` with one attention slot per segment.
 
-The other direction, :func:`params_to_reference`, gives the port's LM as
-that stacked tree of numpy arrays; :func:`opt_to_reference` and
+The other direction, :func:`params_to_reference`, gives the port's model
+as that stacked tree of numpy arrays; :func:`opt_to_reference` and
 :func:`opt_from_reference` do the same for optimizer state (AdamW
 ``step`` / ``m`` / ``v``, Adafactor ``step`` / ``stats``). The slots and
-the checksum ledger use the reference's leaves through
-:func:`reference_paths` and :func:`reference_tree`, so that a slot or a
-ledger record written by either package reads in the other.
+the checksum ledger use the reference's leaves, in ``jax.tree.leaves``
+order, through :func:`reference_paths` and :func:`reference_tree`, so
+that a slot or a ledger record written by either package reads in the
+other.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Dict, Iterator, List, Mapping, Tuple
 
@@ -44,8 +54,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import get_device
 from ..optim.adamw import AdafactorState, AdamWState
-from . import layers as L
-from .lm import LM, Block, init_cache
+from .registry import family_module, model_class
 
 __all__ = ["params_from_reference", "cache_from_reference",
            "params_to_reference", "opt_to_reference", "opt_from_reference",
@@ -53,24 +62,34 @@ __all__ = ["params_from_reference", "cache_from_reference",
            "to_host"]
 
 @functools.lru_cache(maxsize=None)
-def _layer_leaves(cfg: ModelConfig) -> Dict[str, str]:
-    """The reference's per-layer leaves (under "layers/") -> the port's
-    attribute path inside one block, read off a block on the meta
-    device: "attn/wq" -> "attn.wq", "norm_ffn" -> "norm_ffn.gamma"."""
-    names = [n for n, _ in Block(cfg, device="meta").named_parameters()]
-    return {n.removesuffix(".gamma").replace(".", "/"): n for n in names}
+def _leaves(cfg: ModelConfig) -> Tuple[Dict[str, str], Dict[str, str]]:
+    """(top-level leaves, per-layer leaves), read off a one-layer model on
+    the meta device: the reference's leaf path -> the port's parameter
+    name ("norm_f" -> "norm_f.gamma", "shared/attn/wq" ->
+    "shared.attn.wq"), and for a stacked leaf (under "layers/") -> the
+    attribute path inside one layer ("layers/attn/wq" -> "attn.wq")."""
+    one = model_class(cfg)(dataclasses.replace(cfg, n_layers=1),
+                           device="meta")
+    top, layer = {}, {}
+    for name, _ in one.named_parameters():
+        path = name.removesuffix(".gamma").replace(".", "/")
+        if name.startswith("layers.0."):
+            layer["layers/" + path[len("layers/0/"):]] = \
+                name[len("layers.0."):]
+        else:
+            top[path] = name
+    return top, layer
 
 
 def reference_paths(cfg: ModelConfig) -> List[Tuple[str, List[str]]]:
     """[(the reference's leaf path, the port's parameter names)] in the
     order ``jax.tree.leaves`` gives the reference's parameters (dict keys
-    sorted). A stacked layer leaf maps to one name per layer."""
-    top = {"embed": "embed", "norm_f": "norm_f.gamma"}
-    if not cfg.tie_embeddings:
-        top["head"] = "head"
+    sorted at every level, which for these keys is the order of the
+    whole paths). A stacked layer leaf maps to one name per layer."""
+    top, layer = _leaves(cfg)
     out = [(k, [v]) for k, v in top.items()]
-    out += [(f"layers/{k}", [f"layers.{i}.{v}" for i in range(cfg.n_layers)])
-            for k, v in _layer_leaves(cfg).items()]
+    out += [(k, [f"layers.{i}.{v}" for i in range(cfg.n_layers)])
+            for k, v in layer.items()]
     return sorted(out)
 
 
@@ -134,8 +153,8 @@ def _host_tree(tree):
     return to_host(tree)
 
 
-def params_to_reference(cfg: ModelConfig, lm: LM) -> Dict:
-    """The LM's parameters as the reference's stacked tree of numpy
+def params_to_reference(cfg: ModelConfig, lm) -> Dict:
+    """The model's parameters as the reference's stacked tree of numpy
     arrays (``layers/attn/wq`` as (L, in, out), and so on)."""
     return _host_tree(reference_tree(cfg, dict(lm.named_parameters())))
 
@@ -181,13 +200,14 @@ def _set(param: torch.Tensor, value, where: str) -> None:
         param.copy_(_to_tensor(value, param.dtype, param.device))
 
 
-def params_from_reference(cfg: ModelConfig, tree: Mapping,
-                          device=None) -> LM:
-    """An LM on ``device`` (default :func:`repro_torch.get_device`) holding
-    the reference's parameters ``tree``. Raises ValueError on a leaf the
-    configuration does not have and on any shape that differs, KeyError
-    on a missing leaf (as a torn slot gives)."""
-    lm = LM(cfg, device=device if device is not None else get_device())
+def params_from_reference(cfg: ModelConfig, tree: Mapping, device=None):
+    """The family's model (``registry.model_class``) on ``device``
+    (default :func:`repro_torch.get_device`) holding the reference's
+    parameters ``tree``. Raises ValueError on a leaf the configuration
+    does not have and on any shape that differs, KeyError on a missing
+    leaf (as a torn slot gives)."""
+    lm = model_class(cfg)(cfg, device=device if device is not None
+                          else get_device())
     flat = dict(tree_items(tree))
     paths = reference_paths(cfg)
     expect = [path for path, _ in paths]
@@ -212,27 +232,32 @@ def params_from_reference(cfg: ModelConfig, tree: Mapping,
     return lm
 
 
-def cache_from_reference(cfg: ModelConfig, cache: Mapping,
-                         device=None) -> Dict[str, torch.Tensor]:
-    """The reference's decode cache as tensors of the compute type on
-    ``device``: GQA's {"k", "v"} (L, B, max_len, KV, hd), MLA's {"c_kv"
-    (L, B, max_len, r), "k_rope" (L, B, max_len, qk_rope)}."""
+def cache_from_reference(cfg: ModelConfig, cache: Mapping, device=None):
+    """The reference's decode cache as tensors on ``device``, each of the
+    type the port's ``init_cache`` gives it (the compute type; an SSM
+    state float32): GQA's {"k", "v"} (L, B, max_len, KV, hd), MLA's
+    {"c_kv", "k_rope"}, the ssm family's {"state", "conv"}, the hybrid
+    family's {"attn": {...}, "ssm": {...}}. Every dim but the batch and
+    ``max_len`` must be the configuration's."""
     dev = device if device is not None else get_device()
-    dt = L.dtype_of(cfg.compute_dtype)
-    want, _ = init_cache(cfg, 1, 1, device="meta")
-    if sorted(cache) != sorted(want):
-        raise ValueError(f"cache has {sorted(cache)}, expected "
-                         f"{sorted(want)}")
+    init = family_module(cfg).init_cache
+    want = dict(tree_items(init(cfg, 1, 1, device="meta")[0]))
+    # the dims that follow the batch or max_len differ between the two
+    other = dict(tree_items(init(cfg, 2, 3, device="meta")[0]))
+    got = dict(tree_items(cache))
+    if sorted(got) != sorted(want):
+        raise ValueError(f"cache has {sorted(got)}, expected {sorted(want)}")
     out = {}
-    for name, like in want.items():
-        a = np.asarray(cache[name])
-        if a.ndim != like.ndim or a.shape[0] != cfg.n_layers \
-                or a.shape[3:] != like.shape[3:]:
-            raise ValueError(f"cache {name}: shape {a.shape} is not "
-                             f"(L={cfg.n_layers}, B, max_len) + "
-                             f"{tuple(like.shape[3:])}")
-        out[name] = _to_tensor(a, dt, dev)
-    return out
+    for path, like in want.items():
+        a = np.asarray(got[path])
+        fixed = [(d, n) for d, (n, m) in
+                 enumerate(zip(like.shape, other[path].shape)) if n == m]
+        if a.ndim != like.ndim or any(a.shape[d] != n for d, n in fixed):
+            raise ValueError(f"cache {path}: shape {a.shape}, expected "
+                             f"{len(like.shape)} dims with "
+                             f"{dict(fixed)} at these places")
+        out[path] = _to_tensor(a, like.dtype, dev)
+    return nest(out)
 
 
 def opt_from_reference(cfg: ModelConfig, tree: Mapping, device=None):
@@ -245,7 +270,7 @@ def opt_from_reference(cfg: ModelConfig, tree: Mapping, device=None):
                         device=dev)
     f32 = torch.float32
     shapes = {n: tuple(p.shape) for n, p in
-              LM(cfg, device="meta").named_parameters()}
+              model_class(cfg)(cfg, device="meta").named_parameters()}
 
     def leaf(a, shape, where):
         a = np.asarray(a)

@@ -11,7 +11,8 @@ Conventions, as in the JAX package's ``models/layers.py``:
   RoPE angles too.
 * Sharding (``shard_act``, ``gather_weights``, the mesh branch of
   ``flash_sdpa``) and M-RoPE are not part of the port yet: a ``mesh``
-  other than ``None`` raises.
+  other than ``None`` or one card (``launch.mesh.single_device_mesh``)
+  raises.
 """
 
 from __future__ import annotations
@@ -41,10 +42,11 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the port runs on one card: sharded attention (mesh) comes with "
-            "ROADMAP A10b.7's sharding slice")
+    """Raise for a mesh of more than one card; on one card the mesh
+    changes nothing here. (Imported when called: the launch package
+    imports the models.)"""
+    from ..launch.mesh import one_card
+    one_card(mesh)
 
 
 def empty_weight(shape: Tuple[int, ...], dtype: torch.dtype,

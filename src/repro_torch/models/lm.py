@@ -23,7 +23,12 @@ are ``cfg.padded_vocab`` wide and logits are sliced back to
 ``cfg.vocab_size``. ``remat`` ("none", "full", "dots") chooses what the
 backward pass recomputes and changes no value. The vlm and audio branches
 come with their families (ROADMAP A10b.6d); the ssm and hybrid families
-have models of their own (A10b.6b, 6c).
+have models of their own (``ssm_lm.py``, ``hybrid.py``).
+
+``mesh`` is ``None`` or a mesh of one card (``launch.mesh``); on one card
+the moe family's layers then take the expert-parallel path with its
+capacity drops, as the reference's do on its one-device mesh, and
+nothing else changes.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from . import moe as MOE
 
 __all__ = ["LM", "Block", "check_ported", "abstract_init", "forward",
            "forward_train", "cross_entropy", "loss_fn", "init_cache",
-           "decode_step", "REMAT"]
+           "decode_step", "REMAT", "check_remat", "remat_apply"]
 
 REMAT = ("none", "full", "dots")
 
@@ -53,10 +58,11 @@ def check_ported(cfg: ModelConfig) -> None:
             or not cfg.embed_inputs or (cfg.family == "dense"
                                         and cfg.n_experts):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            f"builds the dense and moe families (GQA or MLA attention), and "
-            f"audio, vlm, ssm and hybrid are still to come (ROADMAP "
-            f"A10b.6b-d)")
+            f"{cfg.name}: family {cfg.family!r} is not an LM of the port; "
+            f"the LM builds the dense and moe families (GQA or MLA "
+            f"attention), the ssm and hybrid families have models of their "
+            f"own (models/ssm_lm.py, models/hybrid.py), and audio and vlm "
+            f"are still to come (ROADMAP A10b.6d)")
 
 
 class Block(nn.Module):
@@ -193,28 +199,43 @@ def _save_projections(ctx, op, *args, **kwargs):
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def check_remat(remat: str, grad: bool = True) -> None:
+    """``remat`` must be one of REMAT, and "none" where no gradient is
+    taken (a forward for serving)."""
+    if remat not in REMAT:
+        raise ValueError(f"remat={remat!r}: choose from {REMAT}")
+    if not grad and remat != "none":
+        raise NotImplementedError(
+            f"remat={remat!r}: rematerialisation only applies where "
+            f"gradients are taken; train through loss_fn")
+
+
+def remat_apply(body, h: torch.Tensor, remat: str) -> torch.Tensor:
+    """``body(h)``, one layer, keeping for the backward pass what
+    ``remat`` says: "none" every activation, "full" the layer's input
+    only, "dots" also the projections' outputs (``torch.utils.checkpoint``,
+    non-reentrant)."""
+    if remat == "none":
+        return body(h)
+    if remat == "full":
+        return ckpt.checkpoint(body, h, use_reentrant=False)
+    return ckpt.checkpoint(body, h, use_reentrant=False,
+                           context_fn=functools.partial(
+                               ckpt.create_selective_checkpoint_contexts,
+                               _save_projections))
+
+
 def forward_train(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
                   remat: str = "none", flash: bool = False) -> torch.Tensor:
     """Logits (B, S, vocab) in the compute type, recording gradients for
-    whichever weights require them. ``remat``: "none" keeps every
-    activation for the backward pass, "full" keeps each layer's input
-    only, "dots" also the projections' outputs (``torch.utils.checkpoint``
-    per layer, non-reentrant)."""
-    if remat not in REMAT:
-        raise ValueError(f"remat={remat!r}: choose from {REMAT}")
+    whichever weights require them, each layer under
+    :func:`remat_apply`."""
+    check_remat(remat)
+    L._no_mesh(mesh)
     h, positions = _embed_batch(cfg, lm, batch)
     for lp in lm.layers:
-        def body(h, lp=lp):
-            return _layer_apply(cfg, lp, h, positions, mesh, flash=flash)[0]
-        if remat == "none":
-            h = body(h)
-        elif remat == "full":
-            h = ckpt.checkpoint(body, h, use_reentrant=False)
-        else:
-            h = ckpt.checkpoint(body, h, use_reentrant=False,
-                                context_fn=functools.partial(
-                                    ckpt.create_selective_checkpoint_contexts,
-                                    _save_projections))
+        h = remat_apply(lambda h, lp=lp: _layer_apply(
+            cfg, lp, h, positions, mesh, flash=flash)[0], h, remat)
     h = lm.norm_f(h)
     return _head(cfg, lm, h)
 
@@ -227,10 +248,7 @@ def forward(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
     flash kernel where the reference's would (causal config,
     S % 8 == 0). ``remat`` only matters where gradients are taken, so it
     must be ``"none"`` here; training goes through :func:`loss_fn`."""
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r}: rematerialisation only applies where "
-            f"gradients are taken; train through loss_fn")
+    check_remat(remat, grad=False)
     return forward_train(cfg, lm, batch, mesh, flash=flash)
 
 
@@ -278,6 +296,7 @@ def decode_step(cfg: ModelConfig, lm: LM, cache: Dict[str, torch.Tensor],
     length. Writes the new keys and values (for MLA the latent and the
     RoPE key) into ``cache`` in place and returns (logits (B, 1, vocab),
     cache)."""
+    L._no_mesh(mesh)
     dt = L.dtype_of(cfg.compute_dtype)
     pos = int(pos)
     h = lm.embed[tokens].to(dt)

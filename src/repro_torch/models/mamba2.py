@@ -1,0 +1,241 @@
+"""Mamba2 / SSD (state-space duality) block — arXiv:2405.21060.
+
+The JAX package's ``models/mamba2.py`` in torch ops (it reaches no Pallas
+kernel there either). The full-sequence path is the chunked SSD: within
+a chunk the recurrence is a masked (semiseparable) product, across chunks
+a loop carries the (heads, head_dim, state) state. Decode is the
+recurrent update, one token at a time, O(1) in the sequence's length.
+
+Layout as in the reference: ``in_proj`` emits [z | x | B | C | dt], a
+depthwise causal conv (width 4) runs over [x | B | C], a decay ``A`` per
+head, ``dt`` per head, a ``D`` skip, a SiLU(z) gate, ``out_proj``. One
+B/C group. The SSD's products, the decay and ``dt`` run in float32
+whatever the compute type; ``A_log``, ``dt_bias`` and ``D_skip`` are
+float32 parameters (the train step's compute copy holds them in the
+compute type, as the reference's does, and float32 math promotes them).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from . import layers as L
+
+__all__ = ["Mamba2", "mamba2_apply", "mamba2_decode_step",
+           "mamba2_cache_init", "mamba2_dims"]
+
+F32 = torch.float32
+silu = nn.functional.silu
+
+
+def mamba2_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(d_inner, n_heads, conv_channels)."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    nheads = d_inner // cfg.ssm_head_dim
+    conv_ch = d_inner + 2 * cfg.ssm_state  # x, B, C get convolved
+    return d_inner, nheads, conv_ch
+
+
+class Mamba2(nn.Module):
+    """in_proj (D, 2 d_inner + 2 N + H), conv_w (W, C), conv_b (C,) and
+    out_proj (d_inner, D) in ``cfg.param_dtype``; A_log, dt_bias and
+    D_skip (H,) in float32."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        D, N = cfg.d_model, cfg.ssm_state
+        d_inner, nheads, conv_ch = mamba2_dims(cfg)
+        dt = L.dtype_of(cfg.param_dtype)
+        self.nheads = nheads
+        self.in_proj = L.empty_weight((D, 2 * d_inner + 2 * N + nheads), dt,
+                                      device)
+        self.conv_w = L.empty_weight((cfg.ssm_conv_width, conv_ch), dt,
+                                     device)
+        self.conv_b = L.empty_weight((conv_ch,), dt, device)
+        self.A_log = L.empty_weight((nheads,), F32, device)
+        self.dt_bias = L.empty_weight((nheads,), F32, device)
+        self.D_skip = L.empty_weight((nheads,), F32, device)
+        self.out_proj = L.empty_weight((d_inner, D), dt, device)
+
+    def init_(self, generator: torch.Generator) -> None:
+        """The reference's scales: projections N(0, 2 / (in + out)), conv
+        taps N(0, 0.1^2), conv bias 0, A = -linspace(1, 16) per head
+        (``A_log`` its log), dt bias 0.5, D skip 1."""
+        with torch.no_grad():
+            L.dense_init_(self.in_proj, generator)
+            self.conv_w.normal_(0.0, 0.1, generator=generator)
+            self.conv_b.zero_()
+            self.A_log.copy_(torch.log(torch.linspace(
+                1.0, 16.0, self.nheads, dtype=F32)))
+            self.dt_bias.fill_(0.5)
+            self.D_skip.fill_(1.0)
+            L.dense_init_(self.out_proj, generator)
+
+
+def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
+    """[z | x | B | C | dt] of the in-projection's last dim."""
+    d_inner, nheads, _ = mamba2_dims(cfg)
+    N = cfg.ssm_state
+    return torch.split(proj, [d_inner, d_inner, N, N, nheads], dim=-1)
+
+
+def _causal_conv(u: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv, then SiLU. u: (B, S, C); w: (W, C). The W
+    taps are added one after the other, oldest first, as the
+    reference's unrolled loop does."""
+    W, S = w.shape[0], u.shape[1]
+    pad = nn.functional.pad(u, (0, 0, W - 1, 0))
+    out = torch.zeros_like(u)
+    for i in range(W):
+        out = out + pad[:, i:i + S, :] * w[i]
+    return silu(out + b)
+
+
+def _segsum(log_a: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular pairwise cumulative sums: out[..., i, j] =
+    sum_{j < u <= i} log_a[..., u], -inf above the diagonal. The mask is
+    applied before any ``exp``: the upper triangle's differences are
+    large and positive, and their ``exp`` would overflow (and its
+    gradient turn NaN)."""
+    Q = log_a.shape[-1]
+    cs = torch.cumsum(log_a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]              # (..., i, j)
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                 device=log_a.device))
+    return torch.where(mask, diff, -torch.inf)
+
+
+def _ssd_intra(la: torch.Tensor, Cc: torch.Tensor, Bc: torch.Tensor,
+               xdt: torch.Tensor) -> torch.Tensor:
+    """Within each chunk, a masked product: y[q] = sum over k <= q of
+    exp(segsum)[q, k] (C_q . B_k) xdt_k. la (B, nc, Q, H); Cc, Bc (B, nc,
+    Q, N); xdt (B, nc, Q, H, hd) -> (B, nc, Q, H, hd), float32."""
+    Lm = torch.exp(_segsum(la.movedim(-1, -2)))        # (B,nc,H,Q,Q)
+    scores = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)   # (B,nc,Q,Q)
+    return torch.einsum("bchqk,bckhp->bcqhp", Lm * scores[:, :, None], xdt)
+
+
+def _ssd_chunk_scan(la: torch.Tensor, Cc: torch.Tensor, Bc: torch.Tensor,
+                    xdt: torch.Tensor) -> torch.Tensor:
+    """Across chunks: each chunk's contribution to the (B, H, hd, N)
+    state, a loop that carries the state and emits the state *entering*
+    each chunk, and each position's output from that state, decayed to
+    it. Shapes as :func:`_ssd_intra`'s."""
+    Bb, nc, _, nheads = la.shape
+    hd, N = xdt.shape[-1], Bc.shape[-1]
+    la_cum = torch.cumsum(la, dim=2)                   # (B,nc,Q,H)
+    la_tot = la_cum[:, :, -1, :]                       # (B,nc,H)
+    decay_to_end = torch.exp(la_tot[:, :, None, :] - la_cum)  # (B,nc,Q,H)
+    # state contribution of each chunk: (B,nc,H,hd,N)
+    S_c = torch.einsum("bcqn,bcqhp->bchpn", Bc, xdt * decay_to_end[..., None])
+    state = torch.zeros((Bb, nheads, hd, N), dtype=F32, device=la.device)
+    states_in = []
+    for c in range(nc):
+        states_in.append(state)
+        state = state * torch.exp(la_tot[:, c])[:, :, None, None] + S_c[:, c]
+    states_in = torch.stack(states_in, dim=1)          # (B,nc,H,hd,N)
+    # inter-chunk output: C_t · decay(t) · state_in
+    return (torch.einsum("bcqn,bchpn->bcqhp", Cc, states_in)
+            * torch.exp(la_cum)[..., None])
+
+
+def mamba2_apply(cfg: ModelConfig, p: Mamba2,
+                 x_in: torch.Tensor) -> torch.Tensor:
+    """Full-sequence SSD. x_in: (B, S, D) -> (B, S, D) in x_in's type.
+    ``S`` must be a multiple of the chunk ``min(cfg.ssm_chunk, S)``
+    (decode goes through :func:`mamba2_decode_step`)."""
+    Bb, S, D = x_in.shape
+    N = cfg.ssm_state
+    Q = min(cfg.ssm_chunk, S)
+    if S % Q:
+        raise ValueError(f"sequence {S} is not a multiple of the SSD "
+                         f"chunk {Q}")
+    d_inner, nheads, _ = mamba2_dims(cfg)
+    hd = cfg.ssm_head_dim
+    dt_ = x_in.dtype
+
+    proj = x_in @ p.in_proj.to(dt_)
+    z, xs, Bm, Cm, dt = _split_proj(cfg, proj)
+    conv_in = torch.cat([xs, Bm, Cm], dim=-1)
+    conv_out = _causal_conv(conv_in, p.conv_w.to(dt_), p.conv_b.to(dt_))
+    xs, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
+
+    dt = nn.functional.softplus(dt.to(F32) + p.dt_bias)         # (B,S,H)
+    A = -torch.exp(p.A_log)                                       # (H,)
+    log_a = dt * A[None, None, :]                                 # (B,S,H)
+
+    nc = S // Q
+    xh = xs.reshape(Bb, nc, Q, nheads, hd).to(F32)
+    Bc = Bm.reshape(Bb, nc, Q, N).to(F32)
+    Cc = Cm.reshape(Bb, nc, Q, N).to(F32)
+    la = log_a.reshape(Bb, nc, Q, nheads)
+    dtc = dt.reshape(Bb, nc, Q, nheads)
+    xdt = xh * dtc[..., None]                                     # fold dt in
+
+    y_intra = _ssd_intra(la, Cc, Bc, xdt)
+    y_inter = _ssd_chunk_scan(la, Cc, Bc, xdt)
+
+    y = (y_intra + y_inter).reshape(Bb, S, nheads, hd)
+    y = y + xh.reshape(Bb, S, nheads, hd) * p.D_skip[None, None, :, None]
+    y = y.reshape(Bb, S, d_inner).to(dt_)
+    y = y * silu(z)
+    return y @ p.out_proj.to(dt_)
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def mamba2_cache_init(cfg: ModelConfig, batch: int, device=None):
+    """(cache, axes) of one layer: the SSM state (B, H, hd, N) in float32
+    and the conv tail (B, W - 1, C) in the compute type, zeros. O(1) in
+    the sequence's length."""
+    _, nheads, conv_ch = mamba2_dims(cfg)
+    cache = {
+        "state": torch.zeros((batch, nheads, cfg.ssm_head_dim,
+                              cfg.ssm_state), dtype=F32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, conv_ch),
+                            dtype=L.dtype_of(cfg.compute_dtype),
+                            device=device),
+    }
+    axes = {"state": ("batch", "ssm_heads", "head_dim", "state"),
+            "conv": ("batch", "conv_width", "ssm_conv")}
+    return cache, axes
+
+
+def mamba2_decode_step(cfg: ModelConfig, p: Mamba2, x_tok: torch.Tensor,
+                       cache: Dict[str, torch.Tensor]):
+    """One token. x_tok: (B, 1, D) -> ((B, 1, D), new cache). The new
+    cache is returned, not written into ``cache``."""
+    Bb = x_tok.shape[0]
+    N = cfg.ssm_state
+    d_inner, nheads, _ = mamba2_dims(cfg)
+    hd = cfg.ssm_head_dim
+    dt_ = x_tok.dtype
+
+    proj = x_tok[:, 0, :] @ p.in_proj.to(dt_)
+    z, xs, Bm, Cm, dt = _split_proj(cfg, proj)
+    conv_in = torch.cat([xs, Bm, Cm], dim=-1)                  # (B, C)
+    window = torch.cat([cache["conv"],
+                        conv_in[:, None, :].to(cache["conv"].dtype)],
+                       dim=1)                                   # (B, W, C)
+    conv_out = silu(torch.einsum("bwc,wc->bc", window.to(dt_),
+                                 p.conv_w.to(dt_)) + p.conv_b.to(dt_))
+    xs, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
+
+    dt_h = nn.functional.softplus(dt.to(F32) + p.dt_bias)      # (B,H)
+    A = -torch.exp(p.A_log)
+    da = torch.exp(dt_h * A[None, :])                          # (B,H)
+    xh = xs.reshape(Bb, nheads, hd).to(F32)
+    state = (cache["state"] * da[:, :, None, None]
+             + torch.einsum("bhp,bn,bh->bhpn", xh, Bm.to(F32), dt_h))
+    y = torch.einsum("bhpn,bn->bhp", state, Cm.to(F32))
+    y = y + xh * p.D_skip[None, :, None]
+    y = y.reshape(Bb, d_inner).to(dt_) * silu(z)
+    out = (y @ p.out_proj.to(dt_))[:, None, :]
+    return out, {"state": state, "conv": window[:, 1:, :]}

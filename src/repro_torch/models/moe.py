@@ -22,8 +22,13 @@ Two choices keep the port's routing equal to the reference's:
   scatter, and deterministic on the card (the trainer runs under
   ``torch.use_deterministic_algorithms``).
 
-The expert-parallel path (``moe_apply_ep``: token all-to-all and grouped
-products under a mesh) comes with ROADMAP A10b.7.
+* :func:`moe_apply_ep` — the reference's expert-parallel path on its
+  one-device mesh, which is where the reference's trainer runs its MoE
+  layers: each expert computes a window of equal capacity over the
+  expert-sorted assignments, and an expert's assignments beyond its
+  window are dropped (their outputs are zero). On one card the token
+  all-to-alls are the identity. Meshes of several cards come with
+  ROADMAP A10b.7.
 
 Two runs of a model in bf16 that round at other points (two packages,
 flash and plain attention, decode and prefill) reach a router with
@@ -45,12 +50,15 @@ from ..configs.base import ModelConfig
 from . import layers as L
 
 __all__ = ["MoE", "router_topk", "moe_apply_dense", "moe_apply_ep",
-           "ROUTING_MARGIN", "ROUTING_FLIP_SHARE", "routing_margin",
-           "same_routing", "check_flip_share"]
+           "EP_COUNTS", "ROUTING_MARGIN", "ROUTING_FLIP_SHARE",
+           "routing_margin", "same_routing", "check_flip_share"]
 
 F32 = torch.float32
 ROUTING_MARGIN = 1e-2
 ROUTING_FLIP_SHARE = 0.05
+# assignments that reached moe_apply_ep, and those its expert windows
+# dropped, since the counts were last set to 0
+EP_COUNTS = {"assignments": 0, "dropped": 0}
 
 
 class MoE(nn.Module):
@@ -104,11 +112,91 @@ def moe_apply_dense(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ted,te->td", y.to(F32), combine).to(dt)
 
 
-def moe_apply_ep(cfg: ModelConfig, p: MoE, x: torch.Tensor, mesh, **kwargs):
-    raise NotImplementedError(
-        "moe_apply_ep: the expert-parallel path (token all-to-all, grouped "
-        "expert products on a mesh) comes with ROADMAP A10b.7's sharding "
-        "slice; without a mesh the port runs moe_apply_dense")
+def _local_expert_ffn(x_sorted: torch.Tensor, group_sizes: torch.Tensor,
+                      wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
+                      block_factor: float = 2.0) -> torch.Tensor:
+    """Equal-capacity grouped SwiGLU over rows sorted by expert (the
+    reference's ``_local_expert_ffn``). Expert ``e`` computes a window of
+    ``cap`` rows starting at its group's offset, rows past its group's
+    size masked to zero; the reference writes the windows in expert
+    order, so that a later expert's rows overwrite an earlier window's
+    zero tail, and a group's rows beyond ``cap`` stay zero (dropped). The
+    rows are padded by ``cap`` so that no window is cut short.
+
+    Here the windows are one gather (E, cap, D) and three batched
+    products, and the writes in expert order are one gather too: row r
+    takes its value from the last window that covers it, the window of
+    the last expert whose offset is at most r. No value leaves the card
+    and the backward pass is deterministic."""
+    R, D = x_sorted.shape
+    E = wg.shape[0]
+    dt = x_sorted.dtype
+    cap = int(-(-R * block_factor // E))
+    cap = max(8, ((cap + 7) // 8) * 8)
+    dev = x_sorted.device
+    offsets = torch.cumsum(group_sizes, 0) - group_sizes     # (E,)
+    win = torch.arange(cap, device=dev)
+    x_pad = nn.functional.pad(x_sorted, (0, 0, 0, cap))
+    blk = x_pad[offsets[:, None] + win]                      # (E, cap, D)
+    h = nn.functional.silu(torch.bmm(blk, wg.to(dt))) \
+        * torch.bmm(blk, wu.to(dt))
+    keep = (win[None, :] < group_sizes[:, None])[..., None]
+    out = torch.where(keep, torch.bmm(h, wd.to(dt)), 0.0).to(dt)
+    rows = torch.arange(R, device=dev)
+    last = torch.searchsorted(offsets, rows, right=True) - 1  # (R,)
+    within = rows - offsets[last]
+    covered = (within < cap)[:, None]
+    y = out.reshape(E * cap, D)[last * cap + within.clamp(max=cap - 1)]
+    # the same operations in a forward pass and in its recomputation under
+    # remat, whatever the counts hold (a read to the host, not a tensor
+    # that accumulates)
+    EP_COUNTS["dropped"] += int(torch.clamp(group_sizes - cap, min=0).sum())
+    return torch.where(covered, y, 0.0).to(dt)
+
+
+def moe_apply_ep(cfg: ModelConfig, p: MoE, x: torch.Tensor,
+                 mesh) -> torch.Tensor:
+    """x: (T, D) -> (T, D) in x's type: the reference's ``moe_apply_ep``
+    on a mesh of one card (its ``_ep_shard_fn`` at ``ep = 1``). Raises
+    for a mesh of several cards (ROADMAP A10b.7).
+
+    The ``T * K`` assignments, in token-major order, fill a send buffer
+    of ``capacity`` rows (``ceil(T * K * capacity_factor)``; rows left
+    over belong to the "trash group" ``E``, which is never computed).
+    The rows are sorted by expert id (stably, as ``jnp.argsort``),
+    computed by :func:`_local_expert_ffn`, put back in order and combined
+    in float32 over each token's ``K`` assignments with its router
+    weights. The permutation and its inverse are gathers, so the
+    backward pass is deterministic on the card."""
+    from ..launch.mesh import one_card
+    if one_card(mesh) is None:
+        raise ValueError("moe_apply_ep needs a mesh; without one the "
+                         "reference runs moe_apply_dense")
+    T, D = x.shape
+    K, E = cfg.experts_per_token, cfg.n_experts
+    capacity = max(1, int(-(-T * K * cfg.capacity_factor // 1)))
+    weights, ids = router_topk(cfg, p.router, x)                 # (T, K)
+    n = T * K
+    # one destination: an assignment's rank in its bucket is its place in
+    # token-major order, and the all-to-alls there and back are identities
+    rank = torch.arange(n, device=x.device)
+    keep = rank < capacity
+    slot = torch.where(keep, rank, 0)
+    kept = min(capacity, n)
+    tok = x[:, None, :].expand(T, K, D).reshape(n, D)            # repeat K
+    send = torch.cat([tok[:kept], x.new_zeros((capacity - kept, D))])
+    send_lid = torch.cat([ids.reshape(-1)[:kept],
+                          ids.new_full((capacity - kept,), E)])
+    order = torch.argsort(send_lid, stable=True)
+    inv = torch.argsort(order, stable=True)
+    gs = torch.bincount(send_lid, minlength=E + 1)[:E]
+    EP_COUNTS["assignments"] += n
+    EP_COUNTS["dropped"] += n - kept
+    y = _local_expert_ffn(send[order], gs, p.w_gate, p.w_up, p.w_down)[inv]
+    y_assign = y[slot] * keep[:, None].to(y.dtype)
+    y_tok = (y_assign.to(F32).reshape(T, K, D)
+             * weights.reshape(T, K, 1)).sum(dim=1)
+    return y_tok.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

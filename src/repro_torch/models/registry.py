@@ -2,20 +2,22 @@
 
 The same entry points as the JAX package's ``models/registry.py``, for
 the architectures the port builds so far: the four of the dense family,
-and deepseek-v2-lite-16b (MoE with latent attention) and kimi-k2-1t-a32b
-(MoE with GQA) of the moe family. The other archs of the reference raise
+deepseek-v2-lite-16b (MoE with latent attention) and kimi-k2-1t-a32b
+(MoE with GQA) of the moe family, mamba2-130m of the ssm family and
+zamba2-1.2b of the hybrid family. The other archs of the reference raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 
     api = build_model("llama3-8b")
     lm = api.init(generator)                     # weights on get_device()
-    logits = api.forward(lm, batch, flash=True)  # prefill
+    logits = api.forward(lm, batch, flash=True)  # prefill (ssm, hybrid: no flash)
     loss = api.loss_fn(lm, batch, remat="dots")  # training loss
     cache, _ = api.init_cache(B, max_len)
     logits, cache = api.decode_step(lm, cache, tokens, pos)
 
-The parameters are an :class:`~repro_torch.models.lm.LM` module (weights
-``(in, out)`` as in the reference); ``models.carry`` loads the
-reference's parameter tree into one.
+The parameters are a module of the family's class (:func:`model_class`:
+``lm.LM``, ``ssm_lm.SSMLM`` or ``hybrid.HybridLM``; weights ``(in, out)``
+as in the reference); ``models.carry`` loads the reference's parameter
+tree into one.
 """
 
 from __future__ import annotations
@@ -28,10 +30,12 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import get_device
+from . import hybrid
 from . import lm as LMmod
+from . import ssm_lm
 
 __all__ = ["ModelApi", "build_model", "get_config", "list_archs", "ARCHS",
-           "NOT_PORTED"]
+           "NOT_PORTED", "model_class", "family_module"]
 
 # arch id -> config module (each exposes CONFIG: ModelConfig)
 ARCHS = {
@@ -41,14 +45,14 @@ ARCHS = {
     "llama3-8b": "repro_torch.configs.llama3_8b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }
 
 # archs of the reference that the port does not build yet -> what ports them
 NOT_PORTED = {
     "hubert-xlarge": "ROADMAP A10b.6d (audio family)",
     "qwen2-vl-2b": "ROADMAP A10b.6d (vlm family, M-RoPE)",
-    "zamba2-1.2b": "ROADMAP A10b.6c (hybrid family)",
-    "mamba2-130m": "ROADMAP A10b.6b (ssm family)",
 }
 
 
@@ -59,27 +63,50 @@ class ModelApi:
     CPU."""
 
     cfg: ModelConfig
-    init: Callable          # generator -> LM
-    abstract_init: Callable  # () -> LM on the meta device
+    init: Callable          # generator -> model
+    abstract_init: Callable  # () -> model on the meta device
     forward: Callable       # (lm, batch, mesh=None, remat="none", flash=False) -> logits
+    #                         (the ssm and hybrid families take no flash)
     loss_fn: Callable       # (lm, batch, mesh=None, remat="none") -> loss
     init_cache: Callable    # (batch, max_len) -> (cache, axes)
     decode_step: Callable   # (lm, cache, tokens, pos, mesh=None) -> (logits, cache)
 
 
-def _lm_api(cfg: ModelConfig) -> ModelApi:
+def family_module(cfg: ModelConfig):
+    """The module of ``cfg``'s family: ``ssm_lm``, ``hybrid`` or ``lm``
+    (which raises for a family the port does not build yet)."""
+    if cfg.family == "ssm":
+        return ssm_lm
+    if cfg.family == "hybrid":
+        return hybrid
     LMmod.check_ported(cfg)
+    return LMmod
 
-    def init(generator: torch.Generator) -> LMmod.LM:
+
+def model_class(cfg: ModelConfig):
+    """The ``nn.Module`` class of ``cfg``'s parameters."""
+    mod = family_module(cfg)
+    return {ssm_lm: ssm_lm.SSMLM, hybrid: hybrid.HybridLM}.get(mod, LMmod.LM)
+
+
+def _init(cfg: ModelConfig):
+    cls = model_class(cfg)
+
+    def init(generator: torch.Generator):
         dev = get_device()
         if generator.device.type != dev.type:
             raise ValueError(f"generator on {generator.device}, weights on "
                              f"{dev}: make the generator on the device")
-        return LMmod.LM(cfg, device=dev).init_(generator)
+        return cls(cfg, device=dev).init_(generator)
 
+    return init
+
+
+def _lm_api(cfg: ModelConfig) -> ModelApi:
+    LMmod.check_ported(cfg)
     return ModelApi(
         cfg=cfg,
-        init=init,
+        init=_init(cfg),
         abstract_init=lambda: LMmod.abstract_init(cfg),
         forward=lambda p, b, mesh=None, remat="none", flash=False:
         LMmod.forward(cfg, p, b, mesh, remat=remat, flash=flash),
@@ -88,6 +115,25 @@ def _lm_api(cfg: ModelConfig) -> ModelApi:
         init_cache=lambda batch, max_len: LMmod.init_cache(
             cfg, batch, max_len, device=get_device()),
         decode_step=lambda p, c, t, pos, mesh=None: LMmod.decode_step(
+            cfg, p, c, t, pos, mesh),
+    )
+
+
+def _recurrent_api(cfg: ModelConfig, mod) -> ModelApi:
+    """The ssm (``ssm_lm``) and hybrid (``hybrid``) families: the
+    reference's ``_ssm_api`` and ``_hybrid_api``, whose forward has no
+    flash branch."""
+    return ModelApi(
+        cfg=cfg,
+        init=_init(cfg),
+        abstract_init=lambda: mod.abstract_init(cfg),
+        forward=lambda p, b, mesh=None, remat="none": mod.forward(
+            cfg, p, b, mesh, remat=remat),
+        loss_fn=lambda p, b, mesh=None, remat="none": mod.loss_fn(
+            cfg, p, b, mesh, remat=remat),
+        init_cache=lambda batch, max_len: mod.init_cache(
+            cfg, batch, max_len, device=get_device()),
+        decode_step=lambda p, c, t, pos, mesh=None: mod.decode_step(
             cfg, p, c, t, pos, mesh),
     )
 
@@ -104,7 +150,8 @@ def get_config(arch: str) -> ModelConfig:
 def build_model(cfg_or_arch) -> ModelApi:
     cfg = (get_config(cfg_or_arch) if isinstance(cfg_or_arch, str)
            else cfg_or_arch)
-    return _lm_api(cfg)
+    mod = family_module(cfg)
+    return _lm_api(cfg) if mod is LMmod else _recurrent_api(cfg, mod)
 
 
 def list_archs():

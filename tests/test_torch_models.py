@@ -130,7 +130,8 @@ def test_shapes_and_llama_width():
         (4096, 32, 8, 128, 14336, 128_256, 500_000.0)
     assert get_config("phi4-mini-3.8b").padded_vocab == 200_192
     assert list_archs() == sorted(DENSE + ["deepseek-v2-lite-16b",
-                                           "kimi-k2-1t-a32b"])
+                                           "kimi-k2-1t-a32b", "mamba2-130m",
+                                           "zamba2-1.2b"])
 
 
 @pytest.mark.parametrize("arch", sorted(NOT_PORTED))
@@ -181,7 +182,7 @@ def test_make_batch_is_seeded_and_in_range():
     assert int(a["tokens"].min()) >= 0
     assert int(a["tokens"].max()) < cfg.vocab_size
     with pytest.raises(NotImplementedError):
-        make_batch(ref_get_config("mamba2-130m"), 1, 4,
+        make_batch(ref_get_config("hubert-xlarge"), 1, 4,
                    torch.Generator().manual_seed(0))
 
 

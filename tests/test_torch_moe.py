@@ -1,9 +1,10 @@
 """Port vs reference, the moe family: deepseek-v2-lite-16b (mixture of
 experts with latent attention, MLA) and kimi-k2-1t-a32b (mixture of
 experts with GQA attention) at their ``reduced()`` sizes. The router, the
-dense expert path, MLA's prefill and absorbed decode, the whole model's
-forward and decode, the carried weights and caches, and the training
-path with its slots and ledgers.
+dense expert path, the one-card expert-parallel path (the trainer's),
+MLA's prefill and absorbed decode, the whole model's forward and decode,
+the carried weights and caches, and the training path with its slots and
+ledgers.
 
 Weights come from ``repro``'s own ``api.init`` and go into the port
 through ``repro_torch.models.carry``; tokens and activations are drawn
@@ -65,7 +66,9 @@ import repro_torch
 from repro.configs.base import TrainConfig as RefTrainConfig
 from repro.core import acc_state as ref_acc
 from repro.core import slots as ref_slots
+from repro.launch.mesh import single_device_mesh as ref_single_device_mesh
 from repro.launch.train import ADCCTrainer as RefADCCTrainer
+from repro.launch.steps import build_train_step as ref_build_train_step
 from repro.launch.steps import tree_checksums as ref_tree_checksums
 from repro.models import layers as ref_layers
 from repro.models import lm as ref_lm
@@ -74,11 +77,14 @@ from repro.models import moe as ref_moe
 from repro.models.registry import build_model as ref_build_model
 from repro.models.registry import get_config as ref_get_config
 from repro.optim import adamw as ref_adamw
+from repro.optim import init_error_state as ref_init_error_state
+from repro.sharding.partition import make_rules
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.acc_state import flatten_checksums
 from repro_torch.data import SyntheticPipeline
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.launch.mesh import Mesh, single_device_mesh
 from repro_torch.launch.steps import build_train_step
 from repro_torch.launch.train import ADCCTrainer
 from repro_torch.models import build_model, get_config, list_archs
@@ -373,6 +379,88 @@ def test_moe_backward_is_deterministic():
         moe.moe_apply_ep(cfg, p, x, mesh=object())
 
 
+def _skewed_moe(cfg, seed: int, skew: float):
+    """Reference MoE parameters whose router sends most tokens to experts
+    0 and 1 (by ``skew``), the port's module holding them, and tokens."""
+    rng = np.random.default_rng(seed)
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    x = rng.normal(size=(64, D)).astype(np.float32)
+    p = {"router": rng.normal(size=(D, E)).astype(np.float32) * 0.02,
+         "w_gate": rng.normal(size=(E, D, F)).astype(np.float32) * 0.05,
+         "w_up": rng.normal(size=(E, D, F)).astype(np.float32) * 0.05,
+         "w_down": rng.normal(size=(E, F, D)).astype(np.float32) * 0.05}
+    p["router"][:, :2] += skew * np.sign(x.mean(0))[:, None]
+    m = moe.MoE(cfg, device="cpu")
+    for k, v in p.items():
+        getattr(m, k).data.copy_(_t(v))
+    return {k: jnp.asarray(v) for k, v in p.items()}, m, x
+
+
+def test_moe_apply_ep_matches_reference_where_windows_overflow():
+    """The one-card expert-parallel path against repro's ``moe_apply_ep``
+    on ``single_device_mesh()``, float32, with a router skewed so that two
+    experts take far more rows than their window (``cap`` 40 of 53 each):
+    outputs equal within 1e-5 (reading 9e-8), the dropped rows' zeros
+    included, and the drops counted. A mesh of several cards raises."""
+    cfg = _cfg("deepseek-v2-lite-16b", "float32")
+    jp, m, x = _skewed_moe(cfg, 0, 0.5)
+    mesh = ref_single_device_mesh()
+    want = np.asarray(ref_moe.moe_apply_ep(
+        cfg, jp, jnp.asarray(x), mesh, token_axes=tuple(mesh.axis_names)))
+    moe.EP_COUNTS.update(assignments=0, dropped=0)
+    got = moe.moe_apply_ep(cfg, m, _t(x), single_device_mesh()).numpy()
+    assert (moe.EP_COUNTS["assignments"], int(moe.EP_COUNTS["dropped"])) \
+        == (128, 26)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    dropped = np.abs(want).sum(axis=1) == 0
+    assert dropped.sum() > 0 and (got[dropped] == 0).all()
+    dense = moe.moe_apply_dense(cfg, m, _t(x)).numpy()
+    assert np.abs(dense - got).max() > 0.1
+    with pytest.raises(NotImplementedError, match="A10b.7"):
+        moe.moe_apply_ep(cfg, m, _t(x), Mesh(("data", "model"), (1, 2)))
+    with pytest.raises(ValueError, match="needs a mesh"):
+        moe.moe_apply_ep(cfg, m, _t(x), None)
+
+
+def test_moe_apply_ep_equals_dense_at_generous_capacity():
+    """With routing spread over the experts, no window overflows and the
+    expert-parallel path gives the dense oracle's outputs (float32, 1e-5;
+    the reference's own claim, src/repro/models/moe.py)."""
+    cfg = _cfg("deepseek-v2-lite-16b", "float32")
+    _, m, x = _skewed_moe(cfg, 1, 0.0)
+    moe.EP_COUNTS.update(assignments=0, dropped=0)
+    got = moe.moe_apply_ep(cfg, m, _t(x), single_device_mesh())
+    assert int(moe.EP_COUNTS["dropped"]) == 0
+    np.testing.assert_allclose(got.numpy(),
+                               moe.moe_apply_dense(cfg, m, _t(x)).numpy(),
+                               rtol=0, atol=1e-5)
+
+
+def test_moe_apply_ep_backward_is_deterministic():
+    """The sort, its inverse and the windows are gathers and slices:
+    forward and backward under deterministic algorithms, twice, bitwise
+    alike, and the router learns."""
+    cfg = _cfg("deepseek-v2-lite-16b", "float32")
+    _, m, x = _skewed_moe(cfg, 2, 0.5)
+    out = []
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            q = copy.deepcopy(m)
+            for w in q.parameters():
+                w.requires_grad_(True)
+            xt = _t(x).requires_grad_(True)
+            y = moe.moe_apply_ep(cfg, q, xt, single_device_mesh())
+            out.append([y] + list(torch.autograd.grad(
+                y.square().sum(), [xt] + list(q.parameters()))))
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert float(out[0][2].abs().max()) > 0
+
+
 # ---------------------------------------------------------------------------
 # MLA
 # ---------------------------------------------------------------------------
@@ -441,6 +529,50 @@ def _ref_layers_eager(cfg, params, tokens, port_lm=None,
         out.append((h, want, got, rec))
         h = want
     return out
+
+
+_ROUTES: list = []
+_ROUTING_FNS: dict = {}
+
+
+def _ref_routing_on_mesh(cfg, params, tokens):
+    """The reference's forward layer by layer on its one-device mesh (the
+    expert-parallel path, as its trainer runs it): per layer its router's
+    (ids, probabilities). Its router runs inside ``shard_map``'s trace,
+    so the record is taken by a debug callback, in a function jitted once
+    per configuration."""
+    if cfg not in _ROUTING_FNS:
+        real = ref_moe.router_topk
+
+        def spy(cfg_, w, x):
+            out = real(cfg_, w, x)
+            probs = jax.nn.softmax(x.astype(jnp.float32)
+                                   @ w.astype(jnp.float32), axis=-1)
+            jax.debug.callback(lambda i, p: _ROUTES.append(
+                (np.asarray(i), np.asarray(p))), out[1], probs)
+            return out
+
+        def layers(params, tokens):
+            mesh = ref_single_device_mesh()
+            dt = jnp.dtype(cfg.compute_dtype)
+            h = jnp.take(params["embed"], tokens, axis=0).astype(dt)
+            jpos = jnp.broadcast_to(jnp.arange(tokens.shape[1]),
+                                    tokens.shape)
+            ref_moe.router_topk = spy       # while this function traces
+            try:
+                for i in range(cfg.n_layers):
+                    h, _ = ref_lm._layer_apply(cfg, _layer_params(params, i),
+                                               h, jpos, None, mesh)
+            finally:
+                ref_moe.router_topk = real
+            return h
+
+        _ROUTING_FNS[cfg] = jax.jit(layers)
+    _ROUTES.clear()
+    jax.block_until_ready(_ROUTING_FNS[cfg](params, jnp.asarray(tokens)))
+    jax.effects_barrier()
+    assert len(_ROUTES) == cfg.n_layers
+    return list(_ROUTES)
 
 
 def _check_bf16_layers(cfg, layers) -> None:
@@ -827,54 +959,47 @@ def test_bf16_step_routes_on_the_bf16_router():
 
 
 def _ref_train_step(api, tcfg):
-    """The body of repro's ``build_train_step`` (src/repro/launch/steps.py:
-    the cast-once compute copy, ``value_and_grad`` of ``loss_fn``, the
-    optimizer, ``p + u``, grad_norm and the ADCC checksums) without a
-    mesh. repro's own builder always trains on a mesh, whose MoE layers
-    take the expert-parallel path with its capacity drops; the port has
-    no mesh (ROADMAP A10b.7) and trains the dense path, as repro does
-    without one (see test_reference_step_on_a_mesh_drops_by_capacity)."""
-    init, update = ref_adamw.make_optimizer(
-        RefTrainConfig(**dataclasses.asdict(tcfg)))
-    cdt = jnp.dtype(api.cfg.compute_dtype)
+    """repro's own ``build_train_step`` on its one-device mesh (the mesh
+    its trainer builds), as (step(params, opt, batch, t), opt_init). Its
+    MoE layers take the expert-parallel path, with capacity drops; so do
+    the port's on its one-card mesh."""
+    step, _, init = ref_build_train_step(
+        api, RefTrainConfig(**dataclasses.asdict(tcfg)),
+        make_rules(ref_single_device_mesh(), fsdp=True), donate=False)
 
-    def to_compute(w):
-        return w.astype(cdt) if w.dtype == jnp.float32 and w.ndim >= 2 else w
+    def run(params, opt, batch, t):
+        params, opt, _, metrics, checksums = step(
+            params, opt, ref_init_error_state(params), batch,
+            jax.random.PRNGKey(t))
+        return params, opt, metrics, checksums
 
-    @jax.jit
-    def step(params, opt, batch):
-        loss, grads = jax.value_and_grad(lambda p: api.loss_fn(
-            jax.tree.map(to_compute, p), batch, None,
-            remat=tcfg.remat))(params)
-        updates, opt = update(grads, opt, params)
-        params = jax.tree.map(lambda p, u: p + u.astype(p.dtype), params,
-                              updates)
-        gnorm = jnp.sqrt(sum(jnp.sum(jnp.square(g.astype(jnp.float32)))
-                             for g in jax.tree.leaves(grads)))
-        checksums = {"params": ref_tree_checksums(params),
-                     "opt": ref_tree_checksums(opt),
-                     "updates": ref_tree_checksums(updates)}
-        return params, opt, {"loss": loss, "grad_norm": gnorm}, checksums
-
-    return step, init
+    return run, init
 
 
 def test_reference_step_on_a_mesh_drops_by_capacity(tmp_path):
-    """Why the train-step twins compare with repro's step body without a
-    mesh: repro's trainer always builds its step on a mesh (one device
+    """repro's trainer always builds its step on a mesh (one device
     here), and there its MoE layers take the expert-parallel path, whose
-    tokens beyond an expert's capacity are dropped: another loss than the
-    dense path's, which the port computes (ROADMAP Queue C)."""
+    assignments beyond an expert's window are dropped: another loss than
+    the dense path's. The port's trainer builds a one-card mesh and its
+    step gives repro's on-mesh loss (6.3876 here, against the dense
+    6.3770) within 1e-5, from the same carried weights."""
     cfg, api, params, lm_, _ = _case("deepseek-v2-lite-16b", "float32")
     batch = _batch(cfg)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tcfg = TrainConfig(remat="none")
     trainer = RefADCCTrainer(cfg, RefTrainConfig(**dataclasses.asdict(tcfg)),
-                             str(tmp_path), batch=B, seq=S)
+                             str(tmp_path / "ref"), batch=B, seq=S)
     assert trainer.rules.mesh is trainer.mesh and trainer.mesh.size == 1
     on_mesh = float(api.loss_fn(params, jb, trainer.mesh))
     dense = float(api.loss_fn(params, jb, None))
     assert abs(on_mesh - dense) > 1e-3
+    port = ADCCTrainer(cfg, tcfg, str(tmp_path / "port"), batch=B, seq=S)
+    assert port.info["mesh"] == single_device_mesh()
+    moe.EP_COUNTS.update(assignments=0, dropped=0)
+    loss = float(port.info["value_and_grad"](lm_, _torch_batch(batch))[0])
+    assert abs(loss - on_mesh) <= 1e-5
+    assert int(moe.EP_COUNTS["dropped"]) > 0
+    # without a mesh the port's step stays on the dense path, as repro's
     _, info, _ = build_train_step(build_model(cfg), tcfg)
     assert abs(float(info["value_and_grad"](lm_, _torch_batch(batch))[0])
                - dense) <= 1e-5
@@ -882,8 +1007,9 @@ def test_reference_step_on_a_mesh_drops_by_capacity(tmp_path):
 
 @pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
 def test_three_train_steps_match_reference(optimizer):
-    """deepseek-v2-lite reduced, float32 compute, remat "dots", against
-    repro's step body (``_ref_train_step``): loss and grad_norm within
+    """deepseek-v2-lite reduced, float32 compute, remat "dots", the
+    port's step on its one-card mesh against repro's own step on its
+    one-device mesh (``_ref_train_step``): loss and grad_norm within
     1e-5 relative, parameter and optimizer checksums within 1e-5 relative
     plus 1e-3 absolute, update checksums within 1e-4 of the largest, and
     the parameters within 2 lr + 1e-6 (as for the dense family,
@@ -906,13 +1032,14 @@ def test_three_train_steps_match_reference(optimizer):
                        optimizer=optimizer)
     ref_step, ref_init = _ref_train_step(api, tcfg)
     lm_ = params_from_reference(cfg, jax.tree.map(np.asarray, params))
-    step, _, opt_init = build_train_step(build_model(cfg), tcfg)
+    step, _, opt_init = build_train_step(build_model(cfg), tcfg,
+                                         single_device_mesh())
     r_p, r_o = params, ref_init(params)
     opt = opt_init(lm_)
     for t in range(3):
         batch = _batch(cfg, t)
         r_p, r_o, r_m, r_c = ref_step(
-            r_p, r_o, {k: jnp.asarray(v) for k, v in batch.items()})
+            r_p, r_o, {k: jnp.asarray(v) for k, v in batch.items()}, t)
         lm_, opt, _, m, c = step(lm_, opt, {}, _torch_batch(batch),
                                  torch.Generator().manual_seed(t))
         for k in ("loss", "grad_norm"):
@@ -952,7 +1079,8 @@ def test_train_steps_at_top_k_match_reference(optimizer):
     tcfg = TrainConfig(remat="dots", warmup_steps=2, total_steps=20,
                        optimizer=optimizer)
     ref_step, ref_init = _ref_train_step(api, tcfg)
-    step, _, _ = build_train_step(build_model(cfg), tcfg)
+    step, _, _ = build_train_step(build_model(cfg), tcfg,
+                                  single_device_mesh())
     r_p, r_o = params, ref_init(params)
     compared = []
     for t in range(3):
@@ -960,13 +1088,12 @@ def test_train_steps_at_top_k_match_reference(optimizer):
         lm_ = params_from_reference(cfg, jax.tree.map(np.asarray, r_p))
         opt = opt_from_reference(cfg, jax.tree.map(np.asarray,
                                                    r_o._asdict()))
-        ref_rec = [rec["ref"][0] for *_, rec in
-                   _ref_layers_eager(cfg, r_p, batch["tokens"])]
+        ref_rec = _ref_routing_on_mesh(cfg, r_p, batch["tokens"])
         with _routing() as rec:
             _, _, _, m, c = step(lm_, opt, {}, _torch_batch(batch),
                                  torch.Generator().manual_seed(t))
         r_p, r_o, r_m, r_c = ref_step(
-            r_p, r_o, {k: jnp.asarray(v) for k, v in batch.items()})
+            r_p, r_o, {k: jnp.asarray(v) for k, v in batch.items()}, t)
         # the forward's router calls (remat may call them again)
         assert len(rec["port"]) >= cfg.n_layers
         for (rid, probs), pid in zip(ref_rec, rec["port"]):

@@ -61,14 +61,16 @@ from repro.sharding.partition import make_rules
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.acc_state import flatten_checksums
 from repro_torch.data import SyntheticPipeline
+from repro_torch.launch import steps as steps_mod
 from repro_torch.launch import train as train_mod
+from repro_torch.launch.mesh import Mesh, single_device_mesh as one_card_mesh
 from repro_torch.launch.steps import (build_opt_shardings, build_serve_step,
                                       build_train_step)
 from repro_torch.launch.train import ADCCTrainer
-from repro_torch.models import build_model, get_config
+from repro_torch.models import build_model, get_config, list_archs
 from repro_torch.models.carry import (params_from_reference,
-                                      params_to_reference, reference_tree,
-                                      tree_items)
+                                      params_to_reference, reference_paths,
+                                      reference_tree, tree_items)
 
 ARCHS = ["llama3-8b", "phi4-mini-3.8b"]
 B, S = 2, 32
@@ -303,6 +305,55 @@ def test_sharding_entry_points_wait_for_their_slice():
         build_opt_shardings(TrainConfig(), None, None, None)
     with pytest.raises(NotImplementedError, match="A10b.7"):
         ADCCTrainer(api.cfg, TrainConfig(), "unused", mesh=object())
+
+
+def test_one_card_mesh_is_taken_and_larger_ones_raise(tmp_path):
+    """A mesh of one card, what the reference's trainer builds when it is
+    given none, goes through ``build_train_step``, ``build_serve_step``,
+    the trainer and the model; a mesh of two cards raises, naming ROADMAP
+    A10b.7."""
+    mesh = one_card_mesh()
+    assert (mesh.axis_names, mesh.shape, mesh.size) == \
+        (("data", "model"), {"data": 1, "model": 1}, 1)
+    api = build_model(get_config("llama3-8b").reduced())
+    lm = api.init(torch.Generator().manual_seed(0))
+    assert build_train_step(api, TrainConfig(), mesh)[1]["mesh"] is mesh
+    assert build_train_step(api, TrainConfig())[1]["mesh"] is None
+    tr = ADCCTrainer(api.cfg, TrainConfig(), str(tmp_path / "t"))
+    assert tr.mesh == mesh and tr.info["mesh"] == mesh
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
+    assert torch.equal(api.forward(lm, batch, mesh), api.forward(lm, batch))
+    two = Mesh(("data", "model"), (2, 1))
+    for call in (lambda: build_train_step(api, TrainConfig(), two),
+                 lambda: build_serve_step(api, two, batch=1, max_len=4),
+                 lambda: ADCCTrainer(api.cfg, TrainConfig(), "unused",
+                                     mesh=two),
+                 lambda: api.forward(lm, batch, two)):
+        with pytest.raises(NotImplementedError, match="A10b.7"):
+            call()
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_compute_copy_casts_the_references_leaves(arch):
+    """For every arch the port builds, each parameter of the step's
+    compute copy has the type the reference's ``to_compute`` gives the
+    leaf that holds it: every float32 leaf of two or more dimensions of
+    the *stacked* tree in the compute type, so per-layer vectors (norms,
+    Mamba2's A_log, dt_bias, D_skip) too, and the final and shared
+    norms not."""
+    cfg = get_config(arch).reduced()
+    shapes, _ = ref_build_model(cfg).abstract_init(jax.random.PRNGKey(0))
+    cdt = jnp.dtype(cfg.compute_dtype)
+    want = {path: str(cdt if leaf.dtype == jnp.float32 and
+                      len(leaf.shape) >= 2 else leaf.dtype)
+            for path, leaf in tree_items(shapes)}
+    copy_ = steps_mod._compute_copy(build_model(cfg).abstract_init())
+    by_name = dict(copy_.named_parameters())
+    got = {path: {str(by_name[n].dtype).removeprefix("torch.")
+                  for n in names} for path, names in reference_paths(cfg)}
+    assert got == {path: {dt} for path, dt in want.items()}
+    assert type(copy_) is type(build_model(cfg).abstract_init())
+    assert got["norm_f"] == {"float32"}
 
 
 def test_serve_step_is_the_decode_step():
