@@ -8,6 +8,7 @@ with itself on the card.
     python3 chip_smoke.py --phases card,train           # the trainer alone
     python3 chip_smoke.py --phases card,serve_moe       # the moe family alone
     python3 chip_smoke.py --phases card,serve_ssm       # ssm and hybrid
+    python3 chip_smoke.py --phases card,serve_vlm_audio # vlm and audio
 
 Phases, each printing one JSON line:
 
@@ -24,7 +25,10 @@ Phases, each printing one JSON line:
            timed with CUDA events beside the plain version, one library
            call and the card's bound; flash_attention also at head dims
            off its tile widths (hubert-xlarge's 80, and 48), f32 and bf16,
-           causal and not
+           causal and not, and at qwen2-vl-2b's prefill shape, q
+           (2,4096,12,128) and k/v (2,4096,2,128): six query heads per KV
+           head and a head count that is not a power of two, f32 and
+           bf16, timed beside its bound, its plain version and SDPA
   sweep    the port's main path, ``sweep(engine="fork", mode="batched")``,
            on four workloads under the torn-crash figure's strategies and
            full plans; every cell must equal the port's ``mode="measure"``
@@ -85,6 +89,21 @@ Phases, each printing one JSON line:
            cache of seeded values, zamba2's 30.1 GB, beside its bytes
            bound; and no launch of any kernel of the port (neither family
            reaches one, in the reference as here)
+  serve_vlm_audio the vlm and audio families at full width and depth,
+           seeded weights on the card: qwen2-vl-2b's flash prefill of 2 x
+           4096 (1024 patches, 3072 text tokens), whose 28 launches of
+           flash_attention are each held to the kernel's plain version on
+           their own q/k/v, against the plain-attention forward; a
+           teacher-forced decode of 64 text tokens against a zero-patch
+           prefill of them (the only prompt a text-only decode, all three
+           M-RoPE streams at the cache index, reproduces), in bf16 and in
+           float32 compute; 32 greedy decode steps; a profiler split.
+           hubert-xlarge's forward over 2 x 4096 frames, asking for flash
+           and launching nothing (not causal), its bf16 logits against
+           float32 compute, no decode step or cache, a split of attention,
+           gemm, casts and other. Then 3 steps of ``build_train_step`` for
+           each (one-card mesh, AdamW, remat "dots", deterministic), the
+           checksum chain within its bound
   train    the ADCC trainer (``ADCCTrainer.run``) at llama3-8b's full width
            with depth cut to 2 of 32 layers (1 where the disk cannot hold
            two slots), random weights from a seeded generator on the card,
@@ -158,9 +177,12 @@ from repro_torch.kernels.checksum_verify import ops as cv_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
-from repro_torch.core.acc_state import ChecksumLedger  # noqa: E402
+from repro_torch.core.acc_state import (ChecksumLedger,  # noqa: E402
+                                        LedgerRecord, flatten_checksums)
 from repro_torch.launch.specs import make_batch  # noqa: E402
-from repro_torch.launch.steps import tree_checksums  # noqa: E402
+from repro_torch.launch.mesh import single_device_mesh  # noqa: E402
+from repro_torch.launch.steps import (build_train_step,  # noqa: E402
+                                      tree_checksums)
 from repro_torch.launch.train import ADCCTrainer  # noqa: E402
 from repro_torch.models.carry import (opt_tree, reference_tree,  # noqa: E402
                                       tree_items)
@@ -177,7 +199,7 @@ from repro_torch.scenarios import (CrashPlan, TornSpec,  # noqa: E402
 from repro_torch.scenarios import batched_engine, driver  # noqa: E402
 
 PHASES = ("card", "build", "kernels", "sweep", "sharded", "kv", "device",
-          "serve", "serve_moe", "serve_ssm", "train")
+          "serve", "serve_moe", "serve_ssm", "serve_vlm_audio", "train")
 
 # tensor-core instructions counted in each kernel's SASS, and the kernels
 # that must have them: library -> (name in the kernel's symbol, kinds)
@@ -281,6 +303,36 @@ SSM_F32_TEACHER_ATOL = 1e-4
 LONG_SHAPE = SHAPES["long_500k"]
 LONG_SHORT_POS = 16
 LONG_REPS = 5
+
+# the vlm and audio families' serving phase, full width and depth:
+# qwen2-vl-2b (M-RoPE over 1024 patch embeddings, then 3072 text tokens;
+# its flash prefill runs B3 at six query heads per KV head) and
+# hubert-xlarge (a bidirectional encoder over frame embeddings)
+VLM_ARCH, AUDIO_ARCH = "qwen2-vl-2b", "hubert-xlarge"
+VA_BATCH, VA_PROMPT = 2, 4096
+VLM_DECODE_STEPS = 32
+VLM_TEACHER_TOKENS = 64
+VA_SEED = 19
+# Bounds set before the first run on a card, from CPU readings of the
+# same checks (both archs at full width, 8 layers, bf16, prompts 2 x
+# 128; at reduced() the readings are smaller: 0.014, 0.0 and 0.024):
+# qwen2-vl's flash forward against its plain-attention forward 0.039,
+# argmax agreement 97.7 %; its teacher-forced decode of 64 tokens
+# against a zero-patch prefill (three equal M-RoPE streams, the only
+# prompt a text-only decode reproduces) 0.031, 97.7 %, and 3.9e-6 in
+# float32 compute; hubert's bf16 forward against its float32-compute
+# forward 0.051, 99.2 %. The bf16 bounds are 3.5 x the readings, the
+# float32 one 10 x, as for the recurrent families; the argmax floors are
+# llama's 90 % (a forward against a forward) and 85 % (teacher-forced).
+VLM_FLASH_ATOL = 0.14
+VLM_TEACHER_ATOL = 0.11
+VLM_F32_TEACHER_ATOL = 4e-5
+AUDIO_BF16_ATOL = 0.18
+# train steps of each through build_train_step on the one-card mesh,
+# AdamW, remat "dots", deterministic algorithms; three steps give two
+# links of the checksum chain
+VA_TRAIN_SEQ = 4096
+VA_TRAIN_STEPS = 3
 
 # the train phase: the ADCC trainer at llama3-8b's full width with depth
 # cut to 2 of 32 layers (1 where the disk cannot hold two slots of 2),
@@ -779,9 +831,6 @@ def _flash_head_dims(dev) -> list:
                                                   atol)}
                 del got, want
                 if dtype == torch.bfloat16:
-                    pairs = S * (S + 1) / 2 if causal else S * S
-                    by_ops = 4.0 * hd * B * H * pairs / PEAK_FLOPS[dtype]
-                    by_bytes = 2.0 * 4 * B * S * H * hd / PEAK_BYTES_PER_S
                     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
                     rec.update({
                         "ms": time_ms(lambda: fa_ops.flash_attention(
@@ -789,14 +838,68 @@ def _flash_head_dims(dev) -> list:
                         "plain_ms": time_ms(
                             lambda: fa_kernel.flash_attention_plain(
                                 q, k, v, causal=causal), 3),
-                        "bound_ms": 1e3 * max(by_ops, by_bytes),
-                        "bound_by": ("operations" if by_ops >= by_bytes
-                                     else "bytes"),
+                        **_flash_bound(B, S, H, H, hd, causal),
                         "library_ms": time_ms(lambda: sdpa(
                             qt, kt, vt, is_causal=causal), 10)})
                 out.append(rec)
                 torch.cuda.empty_cache()
         del qkv32, q, k, v
+    return out
+
+
+def _flash_bound(B, S, H, KV, hd, causal) -> dict:
+    """B3's bound in bf16: the larger of its operations (each visible
+    (query, key) pair of a head costs hd multiply-adds for q.k and hd for
+    p.v) at the bf16 peak and its bytes (q, k, v read once, o written
+    once) at the memory rate."""
+    pairs = S * (S + 1) / 2 if causal else S * S
+    by_ops = 4.0 * hd * B * H * pairs / PEAK_FLOPS[torch.bfloat16]
+    by_bytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * KV * hd) \
+        / PEAK_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+
+
+def _flash_vlm_record(dev) -> dict:
+    """B3 at qwen2-vl-2b's prefill shape, q (2,4096,12,128) and k/v
+    (2,4096,2,128), causal: six query heads per KV head, and a head count
+    that is not a power of two. float32 at ``1e-5`` first (the FMA
+    kernel's own head indexing), then bf16 at the kernel's tolerances,
+    timed beside its bound, its plain version and SDPA."""
+    cfg = get_config(VLM_ARCH)
+    B, S = VA_BATCH, VA_PROMPT
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator(device=dev).manual_seed(VA_SEED)
+    q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev,
+                           dtype=torch.float32) for n in (H, KV, KV))
+    f32_err = check_close("flash_attention qwen2-vl prefill f32",
+                          fa_ops.flash_attention(q, k, v),
+                          fa_kernel.flash_attention_plain(q, k, v),
+                          FLASH_F32_TOL, FLASH_F32_TOL)
+    torch.cuda.empty_cache()
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    err = check_close("flash_attention qwen2-vl prefill bf16",
+                      fa_ops.flash_attention(q, k, v),
+                      fa_kernel.flash_attention_plain(q, k, v),
+                      FLASH_BF16_RTOL, FLASH_BF16_ATOL)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {
+        "shape": f"prefill bf16 q ({B},{S},{H},{hd}), k/v ({B},{S},{KV},{hd}),"
+                 f" causal",
+        "max_abs_err": err,
+        "tolerance": f"rtol {FLASH_BF16_RTOL}, atol {FLASH_BF16_ATOL}",
+        "f32_max_abs_err": f32_err,
+        "ms": time_ms(lambda: fa_ops.flash_attention(q, k, v), 10),
+        "launch_only_ms": time_ms(
+            lambda: fa_kernel.flash_attention_cuda(q, k, v), 10),
+        "plain_ms": time_ms(
+            lambda: fa_kernel.flash_attention_plain(q, k, v), 3),
+        **_flash_bound(B, S, H, KV, hd, True),
+        "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True), 10)}
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
     return out
 
 
@@ -824,12 +927,6 @@ def _flash_record(dev) -> dict:
     err = check_close("flash_attention prefill bf16", got, want,
                       FLASH_BF16_RTOL, FLASH_BF16_ATOL)
     del got, want
-    # causal: each of the S(S+1)/2 visible (query, key) pairs of a head
-    # costs hd multiply-adds for q.k and hd for p.v
-    flops = 4.0 * hd * B * H * S * (S + 1) / 2
-    nbytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
-    by_ops = flops / PEAK_FLOPS[torch.bfloat16]
-    by_bytes = nbytes / PEAK_BYTES_PER_S
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return {
@@ -847,13 +944,13 @@ def _flash_record(dev) -> dict:
             lambda: fa_kernel.flash_attention_cuda(q, k, v), 10),
         "plain_ms": time_ms(
             lambda: fa_kernel.flash_attention_plain(q, k, v), 3),
-        "bound_ms": 1e3 * max(by_ops, by_bytes),
-        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+        **_flash_bound(B, S, H, KV, hd, True),
         "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                            enable_gqa=True), 10),
         "library_call": "torch.nn.functional.scaled_dot_product_attention"
                         "(is_causal=True, enable_gqa=True)",
         "head_dims": _flash_head_dims(dev),
+        "qwen2_vl_prefill": _flash_vlm_record(dev),
     }
 
 
@@ -1628,7 +1725,7 @@ def _flash_layer_by_layer(cfg, lm, batch) -> dict:
     """bf16, each layer twice on the plain forward's own layer input:
     with the flash kernel and with plain attention. Tokens routed alike
     must agree within two bf16 ulps of the layer's largest output."""
-    h, positions = lm_mod._embed_batch(cfg, lm, batch)
+    h, positions, _ = lm_mod._embed_batch(cfg, lm, batch)
     sames, worst, bounds = [], 0.0, []
     with torch.no_grad():
         for lp in lm.layers:
@@ -1709,16 +1806,20 @@ def _teacher_forced_f32(cfg, lm, tokens) -> dict:
             "logit_absmax": float(fwd.abs().max())}
 
 
-def _prefill_split(fn) -> dict:
-    """Device time of one deepseek prefill by group, from torch.profiler:
-    each kernel is attributed through the CPU operation that launched it
-    to the MoE layer (``moe_apply_dense``: its expert einsums apart from
-    the router and combine) or the MLA layer (``mla_apply``), the weight
-    and activation casts (``aten::to`` / ``aten::copy_``) apart wherever
-    they run, and everything else (embedding, norms, residuals, head)."""
+_CASTS = ("aten::to", "aten::_to_copy", "aten::copy_")
+
+
+def _split_by_op(fn, spots: dict, groups, group_of) -> dict:
+    """Device time of ``fn()`` by group, from torch.profiler: each kernel
+    is attributed through the chain of CPU operations that launched it.
+    ``spots`` maps a label to (module, function name): that function runs
+    inside a range ``split::<label>`` while profiled. ``group_of(names)``
+    names a kernel's group (one of ``groups``) from the chain's names,
+    innermost first. Kernels launched outside any CPU operation (the
+    port's own, through ctypes) are not seen: use it where none runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    real = {"moe": moe_mod.moe_apply_dense, "mla": mla_mod.mla_apply}
+    real = {k: getattr(m, a) for k, (m, a) in spots.items()}
 
     def ranged(label, f):
         def run(*a, **kw):
@@ -1726,8 +1827,8 @@ def _prefill_split(fn) -> dict:
                 return f(*a, **kw)
         return run
 
-    moe_mod.moe_apply_dense = ranged("split::moe", real["moe"])
-    mla_mod.mla_apply = ranged("split::mla", real["mla"])
+    for k, (m, a) in spots.items():
+        setattr(m, a, ranged(f"split::{k}", real[k]))
     torch.cuda.synchronize()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
@@ -1738,9 +1839,9 @@ def _prefill_split(fn) -> dict:
         wall = time.perf_counter() - t0
         prof.stop()
     finally:
-        moe_mod.moe_apply_dense, mla_mod.mla_apply = real["moe"], real["mla"]
-    groups = dict.fromkeys(("expert_einsums", "moe_router_and_combine",
-                            "mla", "casts", "other"), 0.0)
+        for k, (m, a) in spots.items():
+            setattr(m, a, real[k])
+    out = dict.fromkeys(groups, 0.0)
     for evt in prof.events():
         if evt.device_type != DeviceType.CPU or not evt.kernels:
             continue
@@ -1748,24 +1849,36 @@ def _prefill_split(fn) -> dict:
         while node is not None:
             names.append(node.name)
             node = node.cpu_parent
-        sec = sum(k.duration for k in evt.kernels) / 1e6
-        if any(n in ("aten::to", "aten::_to_copy", "aten::copy_")
-               for n in names):
-            groups["casts"] += sec
-        elif "split::moe" in names:
-            groups["expert_einsums" if "aten::einsum" in names
-                   and names.index("aten::einsum") < names.index("split::moe")
-                   else "moe_router_and_combine"] += sec
-        elif "split::mla" in names:
-            groups["mla"] += sec
-        else:
-            groups["other"] += sec
-    busy = sum(groups.values())
+        out[group_of(names)] += sum(k.duration for k in evt.kernels) / 1e6
+    busy = sum(out.values())
     if busy <= 0:
         raise AssertionError("the profiler attributed no device time")
     return {"wall_s": wall, "device_busy_s": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall),
-            "device_s_by_group": groups}
+            "device_s_by_group": out}
+
+
+def _prefill_split(fn) -> dict:
+    """Device time of one deepseek prefill by group (:func:`_split_by_op`):
+    the MoE layer (``moe_apply_dense``: its expert einsums apart from the
+    router and combine), the MLA layer (``mla_apply``), the weight and
+    activation casts (``aten::to`` / ``aten::copy_``) apart wherever they
+    run, and everything else (embedding, norms, residuals, head)."""
+    def group_of(names):
+        if any(n in _CASTS for n in names):
+            return "casts"
+        if "split::moe" in names:
+            return ("expert_einsums" if "aten::einsum" in names
+                    and names.index("aten::einsum")
+                    < names.index("split::moe")
+                    else "moe_router_and_combine")
+        return "mla" if "split::mla" in names else "other"
+
+    return _split_by_op(
+        fn, {"moe": (moe_mod, "moe_apply_dense"),
+             "mla": (mla_mod, "mla_apply")},
+        ("expert_einsums", "moe_router_and_combine", "mla", "casts",
+         "other"), group_of)
 
 
 def phase_serve_moe(records: list) -> None:
@@ -2000,78 +2113,33 @@ def _teacher_forced(api, lm, tokens, ref) -> tuple:
 
 
 def _ssm_prefill_split(fn) -> dict:
-    """Device time of one prefill of the recurrent families by group, from
-    torch.profiler: each kernel is attributed through the CPU operations
-    that launched it. Weight and activation casts (``aten::to`` /
+    """Device time of one prefill of the recurrent families by group
+    (:func:`_split_by_op`). Weight and activation casts (``aten::to`` /
     ``aten::copy_``) wherever they run; in a Mamba2 layer the causal conv
     (``_causal_conv``), the SSD within chunks (``_ssd_intra``), the scan
     across chunks (``_ssd_chunk_scan``), the in / out projections (its
     products outside those) and its other elementwise work; the shared
     attention block's attention (``attention_apply``); everything else
     (embedding, norms, residuals, the shared SwiGLU, head)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-    spots = {"mamba": (mamba2_mod, "mamba2_apply"),
+    def group_of(names):
+        if any(n in _CASTS for n in names):
+            return "casts"
+        for label in ("conv", "ssd_intra", "chunk_scan", "attention"):
+            if f"split::{label}" in names:
+                return label
+        if "split::mamba" in names:
+            return ("projections" if any(n in ("aten::mm", "aten::matmul")
+                                         for n in names) else "mamba_other")
+        return "other"
+
+    return _split_by_op(
+        fn, {"mamba": (mamba2_mod, "mamba2_apply"),
              "conv": (mamba2_mod, "_causal_conv"),
              "ssd_intra": (mamba2_mod, "_ssd_intra"),
              "chunk_scan": (mamba2_mod, "_ssd_chunk_scan"),
-             "attention": (layers_mod, "attention_apply")}
-    real = {k: getattr(m, a) for k, (m, a) in spots.items()}
-
-    def ranged(label, f):
-        def run(*a, **kw):
-            with record_function(label):
-                return f(*a, **kw)
-        return run
-
-    for k, (m, a) in spots.items():
-        setattr(m, a, ranged(f"split::{k}", real[k]))
-    torch.cuda.synchronize()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    try:
-        prof.start()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        prof.stop()
-    finally:
-        for k, (m, a) in spots.items():
-            setattr(m, a, real[k])
-    groups = dict.fromkeys(("casts", "conv", "ssd_intra", "chunk_scan",
-                            "projections", "mamba_other", "attention",
-                            "other"), 0.0)
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CPU or not evt.kernels:
-            continue
-        names, node = [], evt
-        while node is not None:
-            names.append(node.name)
-            node = node.cpu_parent
-        sec = sum(k.duration for k in evt.kernels) / 1e6
-        if any(n in ("aten::to", "aten::_to_copy", "aten::copy_")
-               for n in names):
-            groups["casts"] += sec
-        elif "split::conv" in names:
-            groups["conv"] += sec
-        elif "split::ssd_intra" in names:
-            groups["ssd_intra"] += sec
-        elif "split::chunk_scan" in names:
-            groups["chunk_scan"] += sec
-        elif "split::attention" in names:
-            groups["attention"] += sec
-        elif "split::mamba" in names:
-            groups["projections" if any(n in ("aten::mm", "aten::matmul")
-                                        for n in names)
-                   else "mamba_other"] += sec
-        else:
-            groups["other"] += sec
-    busy = sum(groups.values())
-    if busy <= 0:
-        raise AssertionError("the profiler attributed no device time")
-    return {"wall_s": wall, "device_busy_s": busy,
-            "device_idle_share": max(0.0, 1.0 - busy / wall),
-            "device_s_by_group": groups}
+             "attention": (layers_mod, "attention_apply")},
+        ("casts", "conv", "ssd_intra", "chunk_scan", "projections",
+         "mamba_other", "attention", "other"), group_of)
 
 
 def _timed_steps(step, reps: int) -> list:
@@ -2257,6 +2325,290 @@ def _serve_recurrent(arch: str) -> None:
           "decode_cache_gb": cache_bytes / 1e9,
           "peak_memory_gb": peak / 1e9, "prefill_split": split,
           "long_500k": long})
+
+
+def phase_serve_vlm_audio(records: list) -> None:
+    """qwen2-vl-2b (vlm) and hubert-xlarge (audio) at full width and depth
+    through the port's model API, random weights from seeded generators
+    on the card: serving, then train steps through ``build_train_step``."""
+    for arch, serve in ((VLM_ARCH, _serve_vlm), (AUDIO_ARCH, _serve_audio)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        api = build_model(cfg)
+        lm = api.init(torch.Generator(device="cuda").manual_seed(VA_SEED))
+        line = serve(cfg, api, lm)
+        if arch == VLM_ARCH:
+            for rec in records:
+                if rec["name"] == "flash_attention":
+                    rec.setdefault("launches_by_path", {}).update({
+                        "serve_vlm_audio qwen2-vl prefill":
+                            line["prefill_launches"]["flash_attention"],
+                        "serve_vlm_audio hubert prefill": 0})
+        line["train"] = _va_train_steps(cfg, api, lm)
+        del lm
+        emit(line)
+
+
+def _vlm_zero_patch(cfg, tokens) -> dict:
+    """A vlm prompt of text only: no patches and three equal M-RoPE
+    streams 0..n-1, the prompt a decode (text only, all streams at the
+    cache index, as the reference's) reproduces."""
+    B, n = tokens.shape
+    pos = torch.arange(n, dtype=torch.int32, device=tokens.device)
+    return {"tokens": tokens,
+            "patches": torch.zeros((B, 0, cfg.d_model), device=tokens.device),
+            "positions": pos[None, None].expand(3, B, n)}
+
+
+def _serve_vlm(cfg, api, lm) -> dict:
+    """qwen2-vl-2b: flash prefill of 2 x 4096 (1024 patches, 3072 text
+    tokens) with every B3 launch held to the plain version, against the
+    plain-attention forward; teacher-forced decode against a zero-patch
+    prefill in bf16 and float32 compute; greedy decode; a profiler split."""
+    dev = torch.device("cuda")
+    B, S, n = VA_BATCH, VA_PROMPT, VLM_TEACHER_TOKENS
+    batch = make_batch(cfg, B, S,
+                       torch.Generator(device=dev).manual_seed(VA_SEED + 1))
+    P = batch["patches"].shape[1]
+    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    # counts to zero just before the model's path, read after it
+    mm_kernel.launches = cv_kernel.launches = fa_kernel.launches = 0
+    t0 = time.perf_counter()
+    with _FlashChecked() as checked:
+        logits = api.forward(lm, batch, flash=True)
+    torch.cuda.synchronize()
+    checked_seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    if launches != {"abft_matmul": 0, "tile_sums": 0,
+                    "flash_attention": cfg.n_layers} \
+            or len(checked.errs) != cfg.n_layers:
+        raise AssertionError(f"qwen2-vl's prefill launched {launches}, "
+                             f"{len(checked.errs)} checked; expected "
+                             f"flash_attention x {cfg.n_layers} and no other")
+    if logits.shape != (B, S, cfg.vocab_size) \
+            or logits.dtype != torch.bfloat16 \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                             f"{logits.dtype}, or not finite")
+    del logits
+    t0 = time.perf_counter()
+    logits = api.forward(lm, batch, flash=True)
+    torch.cuda.synchronize()
+    prefill_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = api.forward(lm, batch, flash=False)
+    torch.cuda.synchronize()
+    plain_seconds = time.perf_counter() - t0
+    if fa_kernel.launches != 2 * cfg.n_layers:
+        raise AssertionError("the plain forward launched flash_attention")
+    flash_err = _logits_err(logits, plain)
+    agree = _argmax_share(logits, plain)
+    logit_absmax = float(plain.abs().max())
+    del logits, plain
+    torch.cuda.empty_cache()
+    if flash_err > VLM_FLASH_ATOL or agree < SERVE_ARGMAX_FLOOR:
+        raise AssertionError(f"qwen2-vl flash forward differs from the plain"
+                             f" forward by {flash_err} (bound "
+                             f"{VLM_FLASH_ATOL}), argmax agreement {agree} "
+                             f"(floor {SERVE_ARGMAX_FLOOR})")
+
+    # teacher-forced decode of the first text tokens against a zero-patch
+    # prefill of them, bf16 and float32 compute
+    tokens = batch["tokens"][:, :n]
+    prompt = _vlm_zero_patch(cfg, tokens)
+    teacher_err, teacher_agree = _teacher_forced(
+        api, lm, tokens, api.forward(lm, prompt))
+    if teacher_err > VLM_TEACHER_ATOL \
+            or teacher_agree < SSM_TEACHER_ARGMAX_FLOOR:
+        raise AssertionError(f"qwen2-vl teacher-forced decode differs from "
+                             f"the zero-patch prefill by {teacher_err} "
+                             f"(bound {VLM_TEACHER_ATOL}), argmax agreement "
+                             f"{teacher_agree} (floor "
+                             f"{SSM_TEACHER_ARGMAX_FLOOR})")
+    fapi = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    f32_fwd = fapi.forward(lm, prompt)
+    f32_err, f32_agree = _teacher_forced(fapi, lm, tokens, f32_fwd)
+    if f32_fwd.dtype != torch.float32 or f32_err > VLM_F32_TEACHER_ATOL:
+        raise AssertionError(f"qwen2-vl float32 teacher-forced decode "
+                             f"differs from the forward by {f32_err} (bound "
+                             f"{VLM_F32_TEACHER_ATOL})")
+    del f32_fwd
+    if fa_kernel.launches != 2 * cfg.n_layers:
+        raise AssertionError("qwen2-vl's decode or its plain prefill "
+                             "launched flash_attention")
+
+    # greedy decode from the first text token into a cache of S
+    cache, _ = api.init_cache(B, S)
+    tok = batch["tokens"][:, :1]
+    generated = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pos in range(VLM_DECODE_STEPS):
+        lg, cache = api.decode_step(lm, cache, tok, pos)
+        tok = lg.argmax(dim=-1).to(torch.int32)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_seconds = time.perf_counter() - t0
+    gen = torch.cat(generated, dim=1)
+    if gen.shape != (B, VLM_DECODE_STEPS) or int(gen.min()) < 0 \
+            or int(gen.max()) >= cfg.vocab_size:
+        raise AssertionError(f"greedy decode: tokens {tuple(gen.shape)}")
+    del cache
+    profile = _device_profile(lambda: api.forward(lm, batch, flash=True))
+    return {"phase": "serve_vlm_audio", "arch": VLM_ARCH,
+            "family": cfg.family, "n_layers": cfg.n_layers,
+            "depth_cut": None, "d_model": cfg.d_model,
+            "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "mrope_sections": cfg.mrope_sections,
+            "param_dtype": cfg.param_dtype,
+            "compute_dtype": cfg.compute_dtype, "params": cfg.param_count(),
+            "param_gb": param_bytes / 1e9, "batch": B, "prompt": S,
+            "patches": P, "text_tokens": S - P,
+            "prefill_launches": launches,
+            "launch_max_abs_err": checked.errs,
+            "launch_tolerance": [FLASH_BF16_RTOL, FLASH_BF16_ATOL],
+            "checked_prefill_seconds": checked_seconds,
+            "prefill_seconds": prefill_seconds,
+            "prefill_tokens_per_s": B * S / prefill_seconds,
+            "plain_prefill_seconds": plain_seconds,
+            "flash_vs_plain_max_abs_err": flash_err,
+            "flash_vs_plain_argmax_agree": agree,
+            "flash_atol": VLM_FLASH_ATOL, "logit_absmax": logit_absmax,
+            "teacher_tokens": n, "teacher_prompt": "zero patches, equal "
+                                                   "M-RoPE streams",
+            "teacher_max_abs_err": teacher_err,
+            "teacher_argmax_agree": teacher_agree,
+            "teacher_atol": VLM_TEACHER_ATOL,
+            "teacher_f32_max_abs_err": f32_err,
+            "teacher_f32_argmax_agree": f32_agree,
+            "teacher_f32_atol": VLM_F32_TEACHER_ATOL,
+            "decode_steps": VLM_DECODE_STEPS,
+            "decode_seconds": decode_seconds,
+            "decode_ms_per_step": 1e3 * decode_seconds / VLM_DECODE_STEPS,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "profile": profile}
+
+
+def _serve_audio(cfg, api, lm) -> dict:
+    """hubert-xlarge: a prefill of 2 x 4096 frames asking for flash, which
+    launches nothing (not causal), its bf16 logits against the float32-
+    compute forward; no decode step or cache; a profiler split."""
+    dev = torch.device("cuda")
+    B, S = VA_BATCH, VA_PROMPT
+    batch = make_batch(cfg, B, S,
+                       torch.Generator(device=dev).manual_seed(VA_SEED + 2))
+    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    if api.decode_step is not None or api.init_cache is not None:
+        raise AssertionError("hubert-xlarge exposes a decode step or cache")
+    mm_kernel.launches = cv_kernel.launches = fa_kernel.launches = 0
+    t0 = time.perf_counter()
+    logits = api.forward(lm, batch, flash=True)
+    torch.cuda.synchronize()
+    first_seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"hubert's prefill launched {launches}: it is "
+                             f"not causal, so it takes no flash branch")
+    if logits.shape != (B, S, cfg.vocab_size) \
+            or logits.dtype != torch.bfloat16 \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"hubert logits {tuple(logits.shape)} "
+                             f"{logits.dtype}, or not finite")
+    del logits
+    t0 = time.perf_counter()
+    logits = api.forward(lm, batch, flash=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    f32 = build_model(dataclasses.replace(
+        cfg, compute_dtype="float32")).forward(lm, batch)
+    err, agree = _logits_err(logits, f32), _argmax_share(logits, f32)
+    logit_absmax = float(f32.abs().max())
+    del logits, f32
+    if err > AUDIO_BF16_ATOL or agree < SERVE_ARGMAX_FLOOR:
+        raise AssertionError(f"hubert's bf16 forward differs from its "
+                             f"float32 forward by {err} (bound "
+                             f"{AUDIO_BF16_ATOL}), argmax agreement {agree} "
+                             f"(floor {SERVE_ARGMAX_FLOOR})")
+
+    def group_of(names):
+        if any(n in _CASTS for n in names):
+            return "casts"
+        if "split::attention" in names:
+            return "attention"
+        return ("gemm" if any(n in ("aten::mm", "aten::matmul")
+                              for n in names) else "other")
+
+    split = _split_by_op(lambda: api.forward(lm, batch, flash=True),
+                         {"attention": (layers_mod, "_sdpa")},
+                         ("attention", "gemm", "casts", "other"), group_of)
+    launches = _launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"hubert launched {launches}")
+    return {"phase": "serve_vlm_audio", "arch": AUDIO_ARCH,
+            "family": cfg.family, "n_layers": cfg.n_layers,
+            "depth_cut": None, "d_model": cfg.d_model,
+            "n_heads": cfg.n_heads, "head_dim": cfg.resolved_head_dim,
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+            "causal": cfg.causal, "param_dtype": cfg.param_dtype,
+            "compute_dtype": cfg.compute_dtype, "params": cfg.param_count(),
+            "param_gb": param_bytes / 1e9, "batch": B, "frames": S,
+            "launches": launches, "first_forward_seconds": first_seconds,
+            "forward_seconds": seconds,
+            "frames_per_s": B * S / seconds,
+            "bf16_vs_f32_max_abs_err": err, "bf16_vs_f32_argmax_agree": agree,
+            "atol": AUDIO_BF16_ATOL, "logit_absmax": logit_absmax,
+            "decode_step": None, "init_cache": None,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "prefill_split": split}
+
+
+def _va_train_steps(cfg, api, lm) -> dict:
+    """``VA_TRAIN_STEPS`` steps of ``build_train_step`` on the one-card
+    mesh at 2 x ``VA_TRAIN_SEQ``, a new batch each step: losses and grad
+    norms finite, the checksum chain within ``CHAIN_RTOL``, no kernel."""
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainConfig(optimizer="adamw", remat="dots", seed=VA_SEED)
+    step, info, opt_init = build_train_step(api, tcfg, single_device_mesh())
+    opt = opt_init(lm)
+    recs, metrics, seconds = [], [], []
+    before = _launch_counts()
+    for t in range(VA_TRAIN_STEPS):
+        batch = make_batch(cfg, VA_BATCH, VA_TRAIN_SEQ, torch.Generator(
+            device=dev).manual_seed(VA_SEED + 10 + t))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm, opt, _, m, c = step(lm, opt, {}, batch, None)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        m = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(list(m.values()))):
+            raise AssertionError(f"{cfg.name} train step {t}: {m}")
+        metrics.append(m)
+        recs.append(LedgerRecord(
+            step=t, rng_seed=VA_SEED, cursor=[],
+            cks_params=flatten_checksums(c["params"]),
+            cks_opt=flatten_checksums(c["opt"]),
+            cks_updates=flatten_checksums(c["updates"]), loss=m["loss"]))
+    ratios = _chain_ratios(recs)
+    if len(ratios) != VA_TRAIN_STEPS - 1 or max(ratios) >= 1.0:
+        raise AssertionError(f"{cfg.name}: checksum chain ratios {ratios}")
+    if _launch_counts() != before:
+        raise AssertionError(f"{cfg.name}: the train steps launched a "
+                             f"kernel; training runs plain attention")
+    del opt
+    return {"batch": VA_BATCH, "seq": VA_TRAIN_SEQ,
+            "optimizer": tcfg.optimizer, "remat": tcfg.remat,
+            "mesh": dict(info["mesh"].shape), "deterministic": True,
+            "losses": [m["loss"] for m in metrics],
+            "grad_norms": [m["grad_norm"] for m in metrics],
+            "step_seconds": seconds, "chain_ratios": ratios,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def _slot_bytes(cfg) -> int:
@@ -2548,6 +2900,8 @@ def main() -> None:
         phase_serve_moe(records)
     if "serve_ssm" in want:
         phase_serve_ssm()
+    if "serve_vlm_audio" in want:
+        phase_serve_vlm_audio(records)
     if "train" in want:
         phase_train()
     if want != list(PHASES):

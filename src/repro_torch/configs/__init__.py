@@ -1,5 +1,5 @@
-"""Per-architecture configs of the port (one module per arch the port
-builds: dense, moe, ssm and hybrid) and their base types."""
+"""Per-architecture configs of the port (one module per arch of the
+reference: dense, moe, ssm, hybrid, audio and vlm) and their base types."""
 
 from .base import SHAPES, ModelConfig, ShapeConfig
 

@@ -134,7 +134,9 @@ def build_train_step(api: ModelApi, tcfg: TrainConfig, rules=None, *,
     LM's parameters and the optimizer state in place when ``donate`` (the
     reference donates its buffers to XLA) and returns them; without
     ``donate`` it works on copies and leaves its inputs as they were.
-    ``batch``: {"tokens", "labels"} tensors on the LM's device.
+    ``batch``: the family's batch (``launch.specs.make_batch``: tokens and
+    labels; audio frames; vlm tokens, patches and M-RoPE positions) as
+    tensors on the LM's device.
     ``generator`` draws the int8 compression's rounding noise (unused
     without compression). ``opt_init(lm)`` makes the optimizer state.
     ``info`` holds ``remat``, ``optimizer`` and
@@ -181,7 +183,8 @@ def build_train_step(api: ModelApi, tcfg: TrainConfig, rules=None, *,
         copy, as the step takes them."""
         params = dict(lm.named_parameters())
         cc = box.get("compute")
-        if cc is None or cc.embed.device != lm.embed.device:
+        if cc is None or next(cc.parameters()).device != \
+                next(lm.parameters()).device:
             cc = box["compute"] = _compute_copy(lm)
         cparams = dict(cc.named_parameters())
         with torch.no_grad():
@@ -234,9 +237,12 @@ def build_serve_step(api: ModelApi, rules=None, *, batch: int, max_len: int,
     ``serve_step(lm, cache, tokens, pos) -> (logits, cache)``: the port's
     ``decode_step``, which writes the cache in place (what the
     reference's donation of the cache amounts to). ``info`` holds the
-    cache's shapes and logical axes."""
+    cache's shapes and logical axes. Raises ValueError for an encoder
+    (no decode step), where the reference's asserts."""
     mesh = one_card(rules)
     cfg = api.cfg
+    if api.decode_step is None:
+        raise ValueError(f"{cfg.name} has no decode step")
 
     def serve_step(lm, cache, tokens, pos):
         return api.decode_step(lm, cache, tokens, pos, mesh)

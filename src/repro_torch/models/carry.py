@@ -5,7 +5,8 @@ The reference keeps its parameters as a pytree of arrays with the layers
 stacked along a leading ``n_layers`` dim:
 
   embed (padded_vocab, D)          norm_f (D,)      head (D, padded_vocab)
-  layers/attn/{wq,wk,wv,wo}        (L, in, out)     [head absent when tied]
+  layers/attn/{wq,wk,wv,wo}        (L, in, out)     [head absent when tied,
+                                                     embed for audio]
   layers/ffn/{w_gate,w_up,w_down}  (L, in, out)     [dense family]
   layers/norm_attn, layers/norm_ffn (L, D)
 

@@ -1,5 +1,5 @@
-"""Transformer layers of the dense LM: RMSNorm, RoPE, GQA attention with
-its flash prefill branch and KV-cache decode branch, SwiGLU.
+"""Transformer layers of the LM: RMSNorm, RoPE and M-RoPE, GQA attention
+with its flash prefill branch and KV-cache decode branch, SwiGLU.
 
 Conventions, as in the JAX package's ``models/layers.py``:
 
@@ -9,10 +9,12 @@ Conventions, as in the JAX package's ``models/layers.py``:
   activations' type, ``cfg.compute_dtype`` (bfloat16), per matmul.
   Attention logits and softmax run in float32; RMSNorm statistics and
   RoPE angles too.
+* Attention rotates q and k by M-RoPE where ``cfg.mrope_sections`` (the
+  vlm family), not at all for the audio family (its frontend embeds
+  positions), and by RoPE otherwise.
 * Sharding (``shard_act``, ``gather_weights``, the mesh branch of
-  ``flash_sdpa``) and M-RoPE are not part of the port yet: a ``mesh``
-  other than ``None`` or one card (``launch.mesh.single_device_mesh``)
-  raises.
+  ``flash_sdpa``) is not part of the port yet: a ``mesh`` other than
+  ``None`` or one card (``launch.mesh.single_device_mesh``) raises.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
 
-__all__ = ["RMSNorm", "rmsnorm", "rope_freqs", "apply_rope", "flash_sdpa",
+__all__ = ["RMSNorm", "rmsnorm", "rope_freqs", "apply_rope", "apply_mrope",
+           "flash_sdpa",
            "flash_applicable", "Attention", "attention_apply",
            "attention_cache_init", "SwiGLU", "swiglu_apply", "dtype_of",
            "empty_weight", "dense_init_"]
@@ -109,6 +112,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     angles = positions[..., None].to(torch.float32) * freqs
     cos = torch.cos(angles)[..., :, None, :]
     sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE. x: (B, S, H, hd); positions3: (3, B, S),
+    the temporal, height and width position streams. ``sections``
+    partitions the hd/2 frequency slots among the three streams in order
+    ((16, 24, 24) at hd 128): slot i turns by the stream it falls in.
+    Angles, cos, sin and the rotation in float32, as :func:`apply_rope`;
+    with three equal streams it is :func:`apply_rope`."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to "
+                         f"hd/2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, device=x.device)
+    stream = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)  # (hd/2,)
+    pos = positions3.to(torch.float32)[stream]                  # (hd/2, B, S)
+    angles = pos.movedim(0, -1) * freqs                         # (B, S, hd/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -199,22 +226,32 @@ class Attention(nn.Module):
 
 
 def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor,
-                    positions: torch.Tensor, *,
+                    positions: Optional[torch.Tensor], *,
+                    mrope_positions: Optional[torch.Tensor] = None,
                     cache: Optional[Dict[str, torch.Tensor]] = None,
                     cache_index: Optional[int] = None,
                     mesh=None, flash: bool = False):
-    """Full attention. With ``cache`` (dict k/v (B, Smax, KV, hd)) performs
-    one decode step: x is (B, S, D) with S new tokens, ``cache_index`` the
-    write position. The cache is updated in place (the reference returns
-    an updated copy) and returned. Returns (out, cache)."""
+    """Full attention. q and k turn by M-RoPE over ``mrope_positions``
+    (3, B, S) where ``cfg.mrope_sections``, not at all for the audio
+    family, by RoPE over ``positions`` (B, S) otherwise. With ``cache``
+    (dict k/v (B, Smax, KV, hd)) performs one decode step: x is (B, S, D)
+    with S new tokens, ``cache_index`` the write position. The cache is
+    updated in place (the reference returns an updated copy) and
+    returned. Returns (out, cache)."""
     B, S, D = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
     q = (x @ p.wq.to(x.dtype)).reshape(B, S, H, hd)
     k = (x @ p.wk.to(x.dtype)).reshape(B, S, KV, hd)
     v = (x @ p.wv.to(x.dtype)).reshape(B, S, KV, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope_sections:
+        q = apply_mrope(q, mrope_positions, cfg.rope_theta,
+                        cfg.mrope_sections)
+        k = apply_mrope(k, mrope_positions, cfg.rope_theta,
+                        cfg.mrope_sections)
+    elif cfg.family != "audio":   # hubert's frontend embeds positions
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is not None:
         i = int(cache_index)

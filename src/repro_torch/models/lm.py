@@ -1,10 +1,11 @@
-"""The transformer LM of the dense and moe families: training loss,
-prefill forward (plain or flash attention) and KV-cache decode.
+"""The transformer LM of the dense, moe, audio and vlm families: training
+loss, prefill forward (plain or flash attention) and KV-cache decode.
 
-The JAX package's ``models/lm.py`` for the ``dense`` and ``moe`` families,
-as an ``nn.Module``: embedding table, a ``ModuleList`` of pre-norm blocks,
-final norm, and an output head that is the embedding table itself when
-``cfg.tie_embeddings``. A block's attention is GQA (``layers.Attention``)
+The JAX package's ``models/lm.py`` as an ``nn.Module``: embedding table
+(none where ``not cfg.embed_inputs``: the audio family), a ``ModuleList``
+of pre-norm blocks, final norm, and an output head that is the embedding
+table itself when ``cfg.tie_embeddings`` and there is one. A block's
+attention is GQA (``layers.Attention``)
 or, with ``cfg.use_mla``, latent attention (``mla.MLA``); its FFN is a
 SwiGLU, or with ``cfg.n_experts`` a mixture of experts (``moe.MoE``) plus
 a shared SwiGLU of ``moe_d_ff * n_shared_experts``. The reference stacks
@@ -21,9 +22,20 @@ Training and serving share one layer loop (:func:`forward_train`, which
 records gradients); ``forward`` runs it under ``torch.no_grad``. Tables
 are ``cfg.padded_vocab`` wide and logits are sliced back to
 ``cfg.vocab_size``. ``remat`` ("none", "full", "dots") chooses what the
-backward pass recomputes and changes no value. The vlm and audio branches
-come with their families (ROADMAP A10b.6d); the ssm and hybrid families
-have models of their own (``ssm_lm.py``, ``hybrid.py``).
+backward pass recomputes and changes no value. The ssm and hybrid
+families have models of their own (``ssm_lm.py``, ``hybrid.py``).
+
+Batches, as in the reference:
+
+  dense, moe : tokens (B, S) int, labels (B, S)
+  audio      : frames (B, S, D) float (the frontend's output), labels (B, S);
+               not causal, no rotary embedding, no decode step
+  vlm        : tokens (B, S - P), patches (B, P, D) float, positions
+               (3, B, S) int (M-RoPE's streams), labels (B, S) with -100
+               over the P patches
+
+A vlm decode step embeds text only and turns all three M-RoPE streams by
+the cache index, as the reference's does.
 
 ``mesh`` is ``None`` or a mesh of one card (``launch.mesh``); on one card
 the moe family's layers then take the expert-parallel path with its
@@ -53,16 +65,14 @@ REMAT = ("none", "full", "dots")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a configuration outside the families the port builds."""
-    if cfg.family not in ("dense", "moe") or cfg.mrope_sections \
-            or not cfg.embed_inputs or (cfg.family == "dense"
-                                        and cfg.n_experts):
+    """Raise for a configuration outside the families this LM builds."""
+    if cfg.family not in ("dense", "moe", "audio", "vlm") \
+            or (cfg.family == "dense" and cfg.n_experts):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not an LM of the port; "
-            f"the LM builds the dense and moe families (GQA or MLA "
-            f"attention), the ssm and hybrid families have models of their "
-            f"own (models/ssm_lm.py, models/hybrid.py), and audio and vlm "
-            f"are still to come (ROADMAP A10b.6d)")
+            f"the LM builds the dense, moe, audio and vlm families (GQA or "
+            f"MLA attention), and the ssm and hybrid families have models "
+            f"of their own (models/ssm_lm.py, models/hybrid.py)")
 
 
 class Block(nn.Module):
@@ -93,20 +103,22 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """Parameters of a dense or moe LM. Weights are created on ``device`` without
-    values; :meth:`init_` draws them, ``models.carry`` loads them."""
+    """Parameters of a dense, moe, audio or vlm LM. Weights are created on
+    ``device`` without values; :meth:`init_` draws them, ``models.carry``
+    loads them. ``embed`` is None where ``not cfg.embed_inputs``, ``head``
+    where the head is the embedding table."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
         dt = L.dtype_of(cfg.param_dtype)
-        self.embed = L.empty_weight((cfg.padded_vocab, cfg.d_model), dt,
-                                    device)
+        self.embed = (L.empty_weight((cfg.padded_vocab, cfg.d_model), dt,
+                                     device) if cfg.embed_inputs else None)
         self.layers = nn.ModuleList(Block(cfg, device=device)
                                     for _ in range(cfg.n_layers))
         self.norm_f = L.RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
-        self.head = (None if cfg.tie_embeddings else
+        self.head = (None if _tied(cfg) else
                      L.empty_weight((cfg.d_model, cfg.padded_vocab), dt,
                                     device))
 
@@ -115,7 +127,8 @@ class LM(nn.Module):
         dense weights N(0, 2 / (in + out)), norms one. The draws differ
         from ``jax.random``'s; the parity tests carry weights over."""
         with torch.no_grad():
-            self.embed.normal_(0.0, 0.02, generator=generator)
+            if self.embed is not None:
+                self.embed.normal_(0.0, 0.02, generator=generator)
             for blk in self.layers:
                 blk.init_(generator)
             if self.head is not None:
@@ -149,9 +162,12 @@ def _ffn_block(cfg: ModelConfig, lp: Block, h_norm: torch.Tensor,
 
 
 def _layer_apply(cfg: ModelConfig, lp: Block, h: torch.Tensor,
-                 positions: torch.Tensor, mesh=None,
+                 positions: Optional[torch.Tensor], mesh=None,
                  cache: Optional[Dict[str, torch.Tensor]] = None,
-                 cache_index: Optional[int] = None, flash: bool = False):
+                 cache_index: Optional[int] = None, flash: bool = False,
+                 mrope: Optional[torch.Tensor] = None):
+    """One block on h (B, S, D). ``positions`` (B, S) drive RoPE,
+    ``mrope`` (3, B, S) M-RoPE (vlm; ``positions`` is then None)."""
     h_norm = lp.norm_attn(h)
     if cfg.use_mla:
         # MLA has no flash branch, in the reference as here
@@ -160,25 +176,37 @@ def _layer_apply(cfg: ModelConfig, lp: Block, h: torch.Tensor,
             cache_index=cache_index)
     else:
         attn_out, new_cache = L.attention_apply(
-            cfg, lp.attn, h_norm, positions, cache=cache,
-            cache_index=cache_index, mesh=mesh, flash=flash)
+            cfg, lp.attn, h_norm, positions, mrope_positions=mrope,
+            cache=cache, cache_index=cache_index, mesh=mesh, flash=flash)
     h = h + attn_out
     h = h + _ffn_block(cfg, lp, lp.norm_ffn(h), mesh)
     return h, new_cache
 
 
 def _embed_batch(cfg: ModelConfig, lm: LM, batch: Dict):
-    """-> (h (B, S, D) in the compute type, positions (B, S))."""
-    tokens = batch["tokens"]
+    """-> (h (B, S, D) in the compute type, positions (B, S) or None,
+    M-RoPE positions (3, B, S) or None). audio: the frames; vlm: the
+    patches followed by the embedded text, with the batch's M-RoPE
+    streams; otherwise the embedded tokens."""
     dt = L.dtype_of(cfg.compute_dtype)
-    h = lm.embed[tokens].to(dt)
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    return h, positions
+    if cfg.family == "vlm":
+        text = lm.embed[batch["tokens"]].to(dt)
+        h = torch.cat([batch["patches"].to(dt), text], dim=1)
+        return h, None, batch["positions"]
+    h = (batch["frames"].to(dt) if cfg.family == "audio"
+         else lm.embed[batch["tokens"]].to(dt))
+    B, S = h.shape[:2]
+    return h, torch.arange(S, device=h.device)[None, :].expand(B, S), None
+
+
+def _tied(cfg: ModelConfig) -> bool:
+    """Whether the head is the embedding table (the reference's rule: a
+    model without an embedding table has a head of its own)."""
+    return cfg.tie_embeddings and cfg.embed_inputs
 
 
 def _head(cfg: ModelConfig, lm: LM, h: torch.Tensor) -> torch.Tensor:
-    logits = (h @ lm.embed.T.to(h.dtype) if cfg.tie_embeddings
+    logits = (h @ lm.embed.T.to(h.dtype) if _tied(cfg)
               else h @ lm.head.to(h.dtype))
     # tables are padded to cfg.padded_vocab
     return logits[..., :cfg.vocab_size]
@@ -232,10 +260,11 @@ def forward_train(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
     :func:`remat_apply`."""
     check_remat(remat)
     L._no_mesh(mesh)
-    h, positions = _embed_batch(cfg, lm, batch)
+    h, positions, mrope = _embed_batch(cfg, lm, batch)
     for lp in lm.layers:
         h = remat_apply(lambda h, lp=lp: _layer_apply(
-            cfg, lp, h, positions, mesh, flash=flash)[0], h, remat)
+            cfg, lp, h, positions, mesh, flash=flash, mrope=mrope)[0], h,
+            remat)
     h = lm.norm_f(h)
     return _head(cfg, lm, h)
 
@@ -269,9 +298,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
             remat: str = "none") -> torch.Tensor:
-    """Mean next-token cross entropy of ``batch`` (tokens, labels) with
-    plain attention, as the reference's (the flash kernel has no
-    backward)."""
+    """Mean cross entropy of ``batch``'s logits against its labels (those
+    of -100 left out) with plain attention, as the reference's (the flash
+    kernel has no backward)."""
     logits = forward_train(cfg, lm, batch, mesh, remat=remat)
     return cross_entropy(logits, batch["labels"])
 
@@ -295,16 +324,21 @@ def decode_step(cfg: ModelConfig, lm: LM, cache: Dict[str, torch.Tensor],
     """One decode step. tokens: (B, 1) int; pos: int — the current cache
     length. Writes the new keys and values (for MLA the latent and the
     RoPE key) into ``cache`` in place and returns (logits (B, 1, vocab),
-    cache)."""
+    cache). The audio family is an encoder and raises ValueError; a vlm
+    step embeds text and turns all three M-RoPE streams by ``pos``."""
+    if cfg.family == "audio":
+        raise ValueError("encoder-only architecture has no decode step")
     L._no_mesh(mesh)
     dt = L.dtype_of(cfg.compute_dtype)
     pos = int(pos)
     h = lm.embed[tokens].to(dt)
     B = tokens.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
+    mrope = (positions[None].expand(3, B, 1) if cfg.mrope_sections
+             else None)
     for i, lp in enumerate(lm.layers):
         layer_cache = {name: c[i] for name, c in cache.items()}
         h, _ = _layer_apply(cfg, lp, h, positions, mesh, cache=layer_cache,
-                            cache_index=pos)
+                            cache_index=pos, mrope=mrope)
     h = lm.norm_f(h)
     return _head(cfg, lm, h), cache

@@ -1,17 +1,18 @@
 """Architecture registry of the port: arch id -> (ModelConfig, ModelApi).
 
 The same entry points as the JAX package's ``models/registry.py``, for
-the architectures the port builds so far: the four of the dense family,
+all ten of its architectures: the four of the dense family,
 deepseek-v2-lite-16b (MoE with latent attention) and kimi-k2-1t-a32b
-(MoE with GQA) of the moe family, mamba2-130m of the ssm family and
-zamba2-1.2b of the hybrid family. The other archs of the reference raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+(MoE with GQA) of the moe family, mamba2-130m of the ssm family,
+zamba2-1.2b of the hybrid family, hubert-xlarge of the audio family (a
+bidirectional encoder over frame embeddings) and qwen2-vl-2b of the vlm
+family (M-RoPE over patch embeddings followed by text).
 
     api = build_model("llama3-8b")
     lm = api.init(generator)                     # weights on get_device()
     logits = api.forward(lm, batch, flash=True)  # prefill (ssm, hybrid: no flash)
     loss = api.loss_fn(lm, batch, remat="dots")  # training loss
-    cache, _ = api.init_cache(B, max_len)
+    cache, _ = api.init_cache(B, max_len)        # None for an encoder (audio)
     logits, cache = api.decode_step(lm, cache, tokens, pos)
 
 The parameters are a module of the family's class (:func:`model_class`:
@@ -24,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -45,15 +46,15 @@ ARCHS = {
     "llama3-8b": "repro_torch.configs.llama3_8b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
+    "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
 }
 
-# archs of the reference that the port does not build yet -> what ports them
-NOT_PORTED = {
-    "hubert-xlarge": "ROADMAP A10b.6d (audio family)",
-    "qwen2-vl-2b": "ROADMAP A10b.6d (vlm family, M-RoPE)",
-}
+# archs of the reference that the port does not build yet -> what ports
+# them (none: the port builds every arch of the reference)
+NOT_PORTED: dict = {}
 
 
 @dataclasses.dataclass
@@ -68,8 +69,10 @@ class ModelApi:
     forward: Callable       # (lm, batch, mesh=None, remat="none", flash=False) -> logits
     #                         (the ssm and hybrid families take no flash)
     loss_fn: Callable       # (lm, batch, mesh=None, remat="none") -> loss
-    init_cache: Callable    # (batch, max_len) -> (cache, axes)
-    decode_step: Callable   # (lm, cache, tokens, pos, mesh=None) -> (logits, cache)
+    init_cache: Optional[Callable]   # (batch, max_len) -> (cache, axes);
+    #                                  None for an encoder
+    decode_step: Optional[Callable]  # (lm, cache, tokens, pos, mesh=None)
+    #                                  -> (logits, cache); None for an encoder
 
 
 def family_module(cfg: ModelConfig):
@@ -112,10 +115,12 @@ def _lm_api(cfg: ModelConfig) -> ModelApi:
         LMmod.forward(cfg, p, b, mesh, remat=remat, flash=flash),
         loss_fn=lambda p, b, mesh=None, remat="none": LMmod.loss_fn(
             cfg, p, b, mesh, remat=remat),
-        init_cache=lambda batch, max_len: LMmod.init_cache(
-            cfg, batch, max_len, device=get_device()),
-        decode_step=lambda p, c, t, pos, mesh=None: LMmod.decode_step(
-            cfg, p, c, t, pos, mesh),
+        init_cache=(None if not cfg.is_decoder else
+                    lambda batch, max_len: LMmod.init_cache(
+                        cfg, batch, max_len, device=get_device())),
+        decode_step=(None if not cfg.is_decoder else
+                     lambda p, c, t, pos, mesh=None: LMmod.decode_step(
+                         cfg, p, c, t, pos, mesh)),
     )
 
 

@@ -31,8 +31,10 @@ SHAPES = [
     (1, 64, 4, 4, 32),     # MHA
     (2, 72, 4, 2, 32),     # S not a multiple of the kernel's 64-row tile
     (1, 40, 8, 2, 128),    # head_dim 128 as in every dense config
-    (1, 64, 4, 2, 80),     # head dims off the kernel's tile widths:
-    (2, 72, 4, 2, 48),     # hubert-xlarge's 80, and 48
+    (1, 64, 4, 2, 80),     # head dims off the kernel's tile widths: 80
+    (2, 72, 4, 2, 48),     # (hubert-xlarge's, whose attention is not
+    #                        causal and never reaches the kernel), and 48
+    (1, 64, 12, 2, 128),   # qwen2-vl-2b's heads: six query heads per KV head
 ]
 
 _TOL = {"float32": dict(rtol=1e-5, atol=1e-5),

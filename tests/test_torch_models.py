@@ -40,6 +40,7 @@ from repro.launch.specs import make_batch as ref_make_batch
 from repro.models import layers as ref_layers
 from repro.models.registry import build_model as ref_build_model
 from repro.models.registry import get_config as ref_get_config
+from repro.models.registry import list_archs as ref_list_archs
 from repro_torch.configs.base import SHAPES, ModelConfig
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -129,18 +130,23 @@ def test_shapes_and_llama_width():
             cfg.d_ff, cfg.vocab_size, cfg.rope_theta) == \
         (4096, 32, 8, 128, 14336, 128_256, 500_000.0)
     assert get_config("phi4-mini-3.8b").padded_vocab == 200_192
-    assert list_archs() == sorted(DENSE + ["deepseek-v2-lite-16b",
-                                           "kimi-k2-1t-a32b", "mamba2-130m",
-                                           "zamba2-1.2b"])
+    assert list_archs() == ref_list_archs()
+    assert len(list_archs()) == 10 and NOT_PORTED == {}
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_registry_raises_for_archs_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError,
-                       match="builds the dense and moe families"):
-        build_model(ref_get_config(arch))
+@pytest.mark.parametrize("arch", ref_list_archs())
+def test_every_reference_arch_builds(arch):
+    """Each of the reference's archs: the port's config equals the
+    reference's field for field, and its model builds on ``meta`` with
+    one parameter per leaf of the reference's abstract parameters."""
+    cfg = get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_get_config(arch))
+    api = build_model(arch)
+    meta = api.abstract_init()
+    assert all(p.device.type == "meta" for p in meta.parameters())
+    n = sum(p.numel() for p in meta.parameters())
+    assert n > 0.5 * cfg.param_count(), (arch, n, cfg.param_count())
+    assert (api.decode_step is None) == (not cfg.is_decoder)
 
 
 def test_registry_unknown_arch_and_remat():
@@ -181,9 +187,11 @@ def test_make_batch_is_seeded_and_in_range():
     assert torch.equal(a["tokens"], b["tokens"])
     assert int(a["tokens"].min()) >= 0
     assert int(a["tokens"].max()) < cfg.vocab_size
-    with pytest.raises(NotImplementedError):
-        make_batch(ref_get_config("hubert-xlarge"), 1, 4,
-                   torch.Generator().manual_seed(0))
+    audio = make_batch(get_config("hubert-xlarge"), 1, 4,
+                       torch.Generator().manual_seed(0))
+    assert sorted(audio) == ["frames", "labels"]
+    assert audio["frames"].shape == (1, 4, 1280)
+    assert audio["frames"].dtype == torch.float32
 
 
 # ---------------------------------------------------------------------------
