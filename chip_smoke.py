@@ -9,6 +9,7 @@ with itself on the card.
     python3 chip_smoke.py --phases card,serve_moe       # the moe family alone
     python3 chip_smoke.py --phases card,serve_ssm       # ssm and hybrid
     python3 chip_smoke.py --phases card,serve_vlm_audio # vlm and audio
+    python3 chip_smoke.py --phases card,examples,mesh   # the example twins, ranks
 
 Phases, each printing one JSON line:
 
@@ -104,6 +105,31 @@ Phases, each printing one JSON line:
            gemm, casts and other. Then 3 steps of ``build_train_step`` for
            each (one-card mesh, AdamW, remat "dots", deterministic), the
            checksum chain within its bound
+  examples the five example twins (``repro_torch.examples``) on the card
+           through their ``main``: quickstart's crash and resume must end
+           bitwise equal to an uninterrupted run, the ABFT demo's B1 and B2
+           must launch, verify and find the element tampered at (5, 7),
+           and no twin may give a non-finite loss; prints each twin's
+           seconds and its launches per kernel (mc_xsbench at a tenth of
+           its lookups, to fit the phase's budget of 150 s)
+  mesh     serving across ranks. (a) each rank's own body at full width,
+           for every rank of a 4-way layout on the one card: llama3-8b's
+           attention (bf16, 2 x 4096) through the TP body of flash_sdpa
+           for ranks 0-3 (8 query heads over 2 KV heads each), each launch
+           held to the kernel's plain version and the four outputs,
+           concatenated over heads, equal to one whole launch bit for bit;
+           one deepseek-v2-lite-16b MoE layer (64 experts, 16 per rank,
+           K = 6; 2 x 1024 tokens, float32) through the EP body of 4 ranks
+           with an all-to-all between threads of this script, equal to
+           moe_apply_dense within 1e-5 where nothing drops, and its drop
+           share at the config's capacity factor. (b) the distributed path
+           at world size 1: an NCCL process group of one rank and
+           ``make_mesh((1, 1), ("data", "model"))``; deepseek-v2-lite-16b at
+           full width and depth (2 x 1024) through ``moe_apply_ep`` with a
+           real ``all_to_all_single``, equal bit for bit to the one-card
+           path, then llama3-8b's flash prefill (2 x 4096) through
+           ``flash_sdpa`` with the mesh, equal bit for bit to the one-card
+           prefill
   train    the ADCC trainer (``ADCCTrainer.run``) at llama3-8b's full width
            with depth cut to 2 of 32 layers (1 where the disk cannot hold
            two slots), random weights from a seeded generator on the card,
@@ -199,7 +225,8 @@ from repro_torch.scenarios import (CrashPlan, TornSpec,  # noqa: E402
 from repro_torch.scenarios import batched_engine, driver  # noqa: E402
 
 PHASES = ("card", "build", "kernels", "sweep", "sharded", "kv", "device",
-          "serve", "serve_moe", "serve_ssm", "serve_vlm_audio", "train")
+          "serve", "serve_moe", "serve_ssm", "serve_vlm_audio", "examples",
+          "mesh", "train")
 
 # tensor-core instructions counted in each kernel's SASS, and the kernels
 # that must have them: library -> (name in the kernel's symbol, kinds)
@@ -333,6 +360,26 @@ AUDIO_BF16_ATOL = 0.18
 # links of the checksum chain
 VA_TRAIN_SEQ = 4096
 VA_TRAIN_STEPS = 3
+
+# the examples phase: each twin's main on the card, its own defaults but
+# mc_xsbench's lookups (a tenth: repro's example takes about 4 minutes on
+# a CPU at 60 000), within a budget of 150 s for the phase
+EXAMPLE_RUNS = (("quickstart", []), ("cg_crash_recovery", []),
+                ("abft_matmul_demo", []),
+                ("mc_xsbench", ["--lookups", "6000"]),
+                ("train_e2e", []))
+EXAMPLES_BUDGET_S = 150.0
+
+# the mesh phase: a 4-way layout's per-rank bodies on the one card, at
+# llama3-8b's attention (2 x 4096, bf16) and one deepseek-v2-lite-16b MoE
+# layer (2 x 1024 tokens, float32); then the distributed path at world
+# size 1 on deepseek-v2-lite-16b (2 x 1024) and llama3-8b (2 x 4096)
+MESH_TP = 4
+MESH_EP = 4
+MESH_SEED = 20
+# float32, summation order only (the grouped windows' products against
+# the dense einsum over the same experts)
+MESH_EP_ATOL = 1e-5
 
 # the train phase: the ADCC trainer at llama3-8b's full width with depth
 # cut to 2 of 32 layers (1 where the disk cannot hold two slots of 2),
@@ -2689,6 +2736,300 @@ def _mode_line(tr, res, peak, first_step: int) -> dict:
             "peak_memory_gb": peak / 1e9}
 
 
+# ---------------------------------------------------------------------------
+# examples
+# ---------------------------------------------------------------------------
+
+def _finite(xs) -> bool:
+    return all(np.isfinite(x) for x in xs)
+
+
+def phase_examples(records: list) -> None:
+    """Each example twin's ``main`` on the card (its printing sent to
+    stderr), its seconds and its launches per kernel wrapper; the counts
+    are set to 0 just before each twin and read just after."""
+    import contextlib
+    import importlib
+    runs = {}
+    for name, args in EXAMPLE_RUNS:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        mm_kernel.launches = cv_kernel.launches = fa_kernel.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = mod.main(list(args))
+        torch.cuda.synchronize()
+        runs[name] = {"args": args, "seconds": time.perf_counter() - t0,
+                      "launches": _launch_counts(), "result": res}
+    q = runs["quickstart"]["result"]
+    if not (q["bitwise"] and q["sweep_ok"] and _finite(q["losses"])):
+        raise AssertionError(f"quickstart: bitwise {q['bitwise']}, sweep "
+                             f"{q['sweep_ok']}, finite "
+                             f"{_finite(q['losses'])}")
+    demo = runs["abft_matmul_demo"]
+    d = demo["result"]
+    if not (d["verified"] and d["tamper_flagged"] and d["corrected_exactly"]
+            and d["tamper_at"] == (5, 7)):
+        raise AssertionError(f"abft_matmul_demo: {d}")
+    if not (demo["launches"]["abft_matmul"] and demo["launches"]["tile_sums"]):
+        raise AssertionError(f"abft_matmul_demo launched {demo['launches']}")
+    if not max(runs["cg_crash_recovery"]["result"]["max_error"]) < 1e-8:
+        raise AssertionError(f"cg_crash_recovery: "
+                             f"{runs['cg_crash_recovery']['result']}")
+    if not runs["mc_xsbench"]["result"]["selective_bitwise"]:
+        raise AssertionError("mc_xsbench: the selective restart's counts "
+                             "differ from the no-crash run's")
+    t = runs["train_e2e"]["result"]
+    if not t["finite"]:
+        raise AssertionError("train_e2e: a non-finite loss")
+    for rec in records:
+        if rec["name"] in ("abft_matmul", "tile_sums"):
+            rec.setdefault("launches_by_path", {})[
+                "examples abft_matmul_demo"] = demo["launches"][rec["name"]]
+    # trim the per-step lists for the line
+    q["losses"] = [q["losses"][0], q["losses"][-1]]
+    t["losses"] = [t["losses"][0], t["losses"][-1]]
+    total = sum(r["seconds"] for r in runs.values())
+    emit({"phase": "examples", "seconds": total,
+          "budget_seconds": EXAMPLES_BUDGET_S,
+          "within_budget": total <= EXAMPLES_BUDGET_S, "runs": runs})
+
+
+# ---------------------------------------------------------------------------
+# mesh: serving across ranks
+# ---------------------------------------------------------------------------
+
+class _ThreadExchange:
+    """``all_to_all_single`` among ``n`` threads of this process, each one
+    rank of the EP body: rank r sends the i-th of n equal row blocks of its
+    tensor to rank i and gets back the r-th block of every rank's, in rank
+    order. Used here only, to run a 4-way layout's bodies on one card."""
+
+    def __init__(self, n: int):
+        import threading
+        self.n = n
+        self.slots = [None] * n
+        self.barrier = threading.Barrier(n, timeout=300)
+
+    def for_rank(self, r: int):
+        def exchange(t: torch.Tensor) -> torch.Tensor:
+            self.slots[r] = t
+            self.barrier.wait()
+            out = torch.cat([s.chunk(self.n)[r] for s in self.slots])
+            self.barrier.wait()
+            return out
+        return exchange
+
+
+def _ep_bodies(p, cfg, x, capacity) -> tuple:
+    """(the MESH_EP ranks' outputs concatenated, seconds): x (N, D) split
+    over the ranks in order, each rank's body in its own thread."""
+    from concurrent.futures import ThreadPoolExecutor
+    ex = _ThreadExchange(MESH_EP)
+    parts = x.chunk(MESH_EP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(MESH_EP) as pool:
+        futs = [pool.submit(moe_mod.ep_body, cfg, p, parts[r], r, MESH_EP,
+                            capacity, ex.for_rank(r))
+                for r in range(MESH_EP)]
+        outs = [f.result() for f in futs]
+    torch.cuda.synchronize()
+    return torch.cat(outs), time.perf_counter() - t0
+
+
+def _mesh_tp_attention() -> dict:
+    """llama3-8b's attention at 2 x 4096, bf16, through flash_sdpa's TP
+    body for each rank of tp = 4, held to the plain version per launch
+    and, concatenated over heads, to one whole launch bit for bit."""
+    dev = torch.device("cuda")
+    cfg = get_config(SERVE_ARCH)
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev,
+                           dtype=torch.bfloat16) for n in (H, KV, KV))
+    H_loc = H // MESH_TP
+    G = H // KV
+    n_kv = max(1, -(-H_loc // G))
+    fa_kernel.launches = 0
+    parts = [layers_mod.flash_tp_body(q[:, :, r * H_loc:(r + 1) * H_loc],
+                                      k, v, r, MESH_TP)
+             for r in range(MESH_TP)]
+    launches = fa_kernel.launches
+    if launches != MESH_TP:
+        raise AssertionError(f"the TP bodies launched B3 {launches} times")
+    errs = []
+    for r, out in enumerate(parts):
+        kv0 = r * H_loc // G
+        want = fa_kernel.flash_attention_plain(
+            q[:, :, r * H_loc:(r + 1) * H_loc], k[:, :, kv0:kv0 + n_kv],
+            v[:, :, kv0:kv0 + n_kv])
+        errs.append(check_close(f"TP body rank {r}", out, want,
+                                FLASH_BF16_RTOL, FLASH_BF16_ATOL))
+        del want
+    whole = fa_ops.flash_attention(q, k, v)
+    if not torch.equal(torch.cat(parts, dim=2), whole):
+        raise AssertionError("the TP bodies' heads differ from one whole "
+                             "launch")
+    q0 = q[:, :, :H_loc]
+    k0, v0 = k[:, :, :n_kv], v[:, :, :n_kv]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q0, k0, v0))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return {"shape": f"q ({B},{S},{H},{hd}) bf16, tp {MESH_TP}: "
+                     f"{H_loc} query heads over {n_kv} KV heads a rank",
+            "launches": launches, "max_abs_err_by_rank": errs,
+            "bitwise_equal_whole": True,
+            "rank_body_ms": time_ms(lambda: layers_mod.flash_tp_body(
+                q0, k, v, 0, MESH_TP), 10),
+            "whole_ms": time_ms(lambda: fa_ops.flash_attention(q, k, v), 10),
+            "rank_plain_ms": time_ms(lambda: fa_kernel.flash_attention_plain(
+                q0, k0, v0), 3),
+            "rank_library_ms": time_ms(lambda: sdpa(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+            **{f"rank_{k_}": v_ for k_, v_ in _flash_bound(
+                B, S, H_loc, n_kv, hd, True).items()}}
+
+
+def _mesh_ep_layer() -> dict:
+    """One deepseek-v2-lite-16b MoE layer at full width, float32, 2 x 1024
+    tokens, through the EP bodies of 4 ranks."""
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(MOE_ARCH), compute_dtype="float32")
+    p = moe_mod.MoE(cfg, device=dev)
+    p.init_(torch.Generator(device=dev).manual_seed(MESH_SEED))
+    N = MOE_BATCH * MOE_PROMPT
+    x = torch.randn((N, cfg.d_model), device=dev, dtype=torch.float32,
+                    generator=torch.Generator(device=dev)
+                    .manual_seed(MESH_SEED + 1))
+    t_loc = N // MESH_EP
+    dense = moe_mod.moe_apply_dense(cfg, p, x)
+    moe_mod.EP_COUNTS.update(assignments=0, dropped=0)
+    generous, _ = _ep_bodies(p, cfg, x, t_loc * cfg.experts_per_token)
+    if moe_mod.EP_COUNTS["dropped"]:
+        raise AssertionError(f"{moe_mod.EP_COUNTS['dropped']} assignments "
+                             f"dropped at a capacity of every assignment")
+    err = check_close("EP bodies vs moe_apply_dense", generous, dense, 0.0,
+                      MESH_EP_ATOL)
+    cap = moe_mod.ep_capacity(cfg, t_loc, MESH_EP)
+    moe_mod.EP_COUNTS.update(assignments=0, dropped=0)
+    _, seconds = _ep_bodies(p, cfg, x, cap)
+    counts = dict(moe_mod.EP_COUNTS)
+    one = moe_mod.ep_body(cfg, p, x, 0, 1, moe_mod.ep_capacity(cfg, N, 1),
+                          lambda t: t)
+    del one
+    return {"shape": f"x ({N},{cfg.d_model}) f32, {cfg.n_experts} experts, "
+                     f"{cfg.n_experts // MESH_EP} a rank, K "
+                     f"{cfg.experts_per_token}, ep {MESH_EP}",
+            "max_abs_err_vs_dense": err, "atol": MESH_EP_ATOL,
+            "capacity": cap, "capacity_factor": cfg.capacity_factor,
+            "assignments": counts["assignments"],
+            "dropped": counts["dropped"],
+            "drop_share": counts["dropped"] / counts["assignments"],
+            "ep_4_bodies_s": seconds,
+            "ep_one_card_ms": time_ms(lambda: moe_mod.ep_body(
+                cfg, p, x, 0, 1, moe_mod.ep_capacity(cfg, N, 1),
+                lambda t: t), 3),
+            "dense_ms": time_ms(lambda: moe_mod.moe_apply_dense(cfg, p, x),
+                                3)}
+
+
+def _ranked_equals_one_card(arch: str, B: int, S: int, seed: int, mesh,
+                            flash_launches: int) -> dict:
+    """``arch`` at full width and depth, seeded weights on the card: the
+    forward through ``mesh`` (a DeviceMesh of one rank) against the
+    one-card forward (the one-card mesh, whose moe layers take the same
+    expert-parallel path) bit for bit."""
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    api = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = api.init(torch.Generator(device=dev).manual_seed(seed))
+    batch = make_batch(cfg, B, S,
+                       torch.Generator(device=dev).manual_seed(seed + 1))
+    one = api.forward(lm, batch, single_device_mesh(), flash=True)
+    del one
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = api.forward(lm, batch, single_device_mesh(), flash=True)
+    torch.cuda.synchronize()
+    one_seconds = time.perf_counter() - t0
+    mm_kernel.launches = cv_kernel.launches = fa_kernel.launches = 0
+    moe_mod.EP_COUNTS.update(assignments=0, dropped=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranked = api.forward(lm, batch, mesh, flash=True)
+    torch.cuda.synchronize()
+    first_seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    ep = dict(moe_mod.EP_COUNTS)
+    # the steady time: the first call also sets up the group's first
+    # collectives
+    del ranked
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranked = api.forward(lm, batch, mesh, flash=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if launches != {"abft_matmul": 0, "tile_sums": 0,
+                    "flash_attention": flash_launches}:
+        raise AssertionError(f"{arch} through the mesh launched {launches}")
+    if not torch.equal(ranked, one):
+        raise AssertionError(f"{arch}: the forward through a one-rank mesh "
+                             f"differs from the one-card forward by "
+                             f"{_logits_err(ranked, one)}")
+    del one, ranked
+    profile = _device_profile(lambda: api.forward(lm, batch, mesh,
+                                                  flash=True))
+    del lm, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "batch": B, "prompt": S, "bitwise_equal": True,
+            "launches": launches, "ep_counts": ep,
+            "first_forward_seconds": first_seconds,
+            "forward_seconds": seconds, "one_card_seconds": one_seconds,
+            "profile": profile}
+
+
+def phase_mesh(records: list) -> None:
+    """(a) a 4-way layout's per-rank bodies on the one card; (b) the
+    distributed path at world size 1 through NCCL."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    tp = _mesh_tp_attention()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep = _mesh_ep_layer()
+    gc.collect()
+    torch.cuda.empty_cache()
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+        rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        moe_run = _ranked_equals_one_card(MOE_ARCH, MOE_BATCH, MOE_PROMPT,
+                                          MOE_SEED, mesh, 0)
+        dense_run = _ranked_equals_one_card(
+            SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_SEED, mesh,
+            get_config(SERVE_ARCH).n_layers)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    for rec in records:
+        if rec["name"] == "flash_attention":
+            rec.setdefault("launches_by_path", {}).update({
+                "mesh tp bodies": tp["launches"],
+                "mesh llama3-8b prefill": dense_run["launches"][
+                    "flash_attention"]})
+    emit({"phase": "mesh", "tp_attention": tp, "ep_layer": ep,
+          "world_1": [moe_run, dense_run]})
+
+
 def phase_train() -> None:
     """The ADCC trainer through its entry point at llama3-8b's full width:
     uninterrupted, crashed-and-recovered from a torn slot, and the
@@ -2902,6 +3243,10 @@ def main() -> None:
         phase_serve_ssm()
     if "serve_vlm_audio" in want:
         phase_serve_vlm_audio(records)
+    if "examples" in want:
+        phase_examples(records)
+    if "mesh" in want:
+        phase_mesh(records)
     if "train" in want:
         phase_train()
     if want != list(PHASES):

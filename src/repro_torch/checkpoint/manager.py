@@ -5,8 +5,8 @@ intra-job one.
 The JAX package's ``checkpoint/manager.py``. A checkpoint stores global
 (unsharded) arrays in the flat layout of the slots, so one written by
 either package restores in the other. ``restore_elastic`` places every
-array against the target mesh's shardings and needs the port's
-sharding slice (ROADMAP A10b.7); until then it raises.
+global array against the target mesh's placements (a mesh of another
+size than the one that wrote it: elastic scaling).
 """
 
 from __future__ import annotations
@@ -51,8 +51,18 @@ def restore_checkpoint(path: str, template) -> Tuple[Any, Dict]:
 
 
 def restore_elastic(path: str, template, rules, axes_tree) -> Tuple[Any, Dict]:
-    """Restore onto a different mesh. Needs the partition rules of the
-    port's sharding slice, which is not ported yet."""
-    raise NotImplementedError(
-        "restore_elastic needs sharding/partition.py, which is not ported "
-        "yet (ROADMAP A10b.7); restore_checkpoint restores on one card")
+    """Restore onto another mesh: every global array of the checkpoint
+    (``template``'s leaves, on the device of each) becomes a DTensor on
+    ``rules.mesh`` (a ``DeviceMesh``) with the placements its logical
+    axes (``axes_tree``, the same structure) take under ``rules``; each
+    rank keeps its shard. Raises ValueError without partition rules."""
+    from ..sharding.partition import PartitionRules, params_shardings, place
+    if not isinstance(rules, PartitionRules):
+        raise ValueError("restore_elastic places arrays by the partition "
+                         "rules of the target mesh (sharding.partition."
+                         f"make_rules); got {rules!r}")
+    state, meta = restore_checkpoint(path, template)
+    where = dict(tree_items(params_shardings(rules, axes_tree)))
+    placed = {k: place(t, rules.mesh, where[k])
+              for k, t in tree_items(state)}
+    return nest(placed), meta

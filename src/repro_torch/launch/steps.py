@@ -38,8 +38,10 @@ the step reads none.
 
 ``rules`` is ``None`` or a mesh of one card (``launch.mesh``), which the
 step hands to ``loss_fn`` as the reference's hands it its mesh: the moe
-family's layers then take the expert-parallel path. Sharding over a
-larger mesh (``build_opt_shardings``) comes with ROADMAP A10b.7.
+family's layers then take the expert-parallel path. Training across the
+ranks of a ``DeviceMesh`` comes with ROADMAP A10b.7b and raises.
+:func:`build_opt_shardings` gives the optimizer state's placements on
+any mesh; :func:`build_serve_step` serves across ranks.
 """
 
 from __future__ import annotations
@@ -56,13 +58,15 @@ from ..core.acc_state import leaf_checksum
 from ..models import layers as L
 from ..models.carry import opt_tree, reference_paths, reference_tree, tree_items
 from ..models.registry import ModelApi, family_module
-from ..optim import compress_decompress, make_optimizer
-from .mesh import one_card
+from ..models.carry import param_axes
+from ..optim import (AdafactorState, AdamWState, compress_decompress,
+                     make_optimizer)
+from ..sharding.partition import (PartitionRules, cache_shardings, make_rules,
+                                  params_shardings, placements)
+from .mesh import check_mesh, one_card
 
 __all__ = ["build_train_step", "build_serve_step", "tree_checksums",
            "build_opt_shardings"]
-
-_SHARDING = "sharding is not ported yet (ROADMAP A10b.7): the port runs on one card"
 
 
 def tree_checksums(tree):
@@ -77,8 +81,30 @@ def tree_checksums(tree):
     return leaf_checksum(tree)
 
 
-def build_opt_shardings(*args, **kwargs):
-    raise NotImplementedError(f"build_opt_shardings: {_SHARDING}")
+def build_opt_shardings(tcfg: TrainConfig, rules: PartitionRules,
+                        params_sh, axes):
+    """Optimizer-state placements (trees as ``sharding.partition.
+    params_shardings`` gives them) in the reference's structure. AdamW's
+    moments mirror their parameter's placements exactly; Adafactor's
+    factored statistics drop the reduced logical dim (row statistics
+    lose the last axis, column statistics the second to last); the step
+    is replicated."""
+    repl = placements(rules.mesh, ())
+    if tcfg.optimizer == "adafactor":
+        def stat(ax):
+            if len(ax) >= 2:
+                return {"row": placements(rules.mesh, rules.spec(ax[:-1])),
+                        "col": placements(rules.mesh,
+                                          rules.spec(ax[:-2] + ax[-1:]))}
+            return {"v": placements(rules.mesh, rules.spec(ax))}
+
+        def walk(tree):
+            if isinstance(tree, dict):
+                return {k: walk(v) for k, v in tree.items()}
+            return stat(tree)
+
+        return AdafactorState(step=repl, stats=walk(axes))
+    return AdamWState(step=repl, m=params_sh, v=params_sh)
 
 
 @contextlib.contextmanager
@@ -236,10 +262,15 @@ def build_serve_step(api: ModelApi, rules=None, *, batch: int, max_len: int,
     """One-token decode step builder. Returns (serve_step, info), with
     ``serve_step(lm, cache, tokens, pos) -> (logits, cache)``: the port's
     ``decode_step``, which writes the cache in place (what the
-    reference's donation of the cache amounts to). ``info`` holds the
-    cache's shapes and logical axes. Raises ValueError for an encoder
-    (no decode step), where the reference's asserts."""
-    mesh = one_card(rules)
+    reference's donation of the cache amounts to). ``rules``: ``None``,
+    a mesh (one card, or a ``DeviceMesh`` to serve across its ranks) or
+    the ``PartitionRules`` of one. ``info`` holds the cache's shapes and
+    logical axes, the parameters' axes, and with a mesh the placements
+    of both. Raises ValueError for an encoder (no decode step), where
+    the reference's asserts."""
+    if not isinstance(rules, PartitionRules):
+        rules = None if check_mesh(rules) is None else make_rules(rules)
+    mesh = None if rules is None else check_mesh(rules.mesh)
     cfg = api.cfg
     if api.decode_step is None:
         raise ValueError(f"{cfg.name} has no decode step")
@@ -251,5 +282,8 @@ def build_serve_step(api: ModelApi, rules=None, *, batch: int, max_len: int,
                                                  device="meta")
     info = {"cache_shapes": {k: tuple(v.shape) for k, v in
                              tree_items(shapes)},
-            "cache_axes": axes}
+            "cache_axes": axes, "axes": param_axes(cfg)}
+    if rules is not None:
+        info["params"] = params_shardings(rules, info["axes"])
+        info["cache"] = cache_shardings(rules, axes)
     return serve_step, info

@@ -102,8 +102,8 @@ class ADCCTrainer:
         """mode: 'adcc' (paper technique) | 'sync' (traditional blocking
         checkpoint baseline) | 'none' (no fault tolerance).
         ``mesh``: ``None`` (a mesh of one card is built, as the reference
-        builds its one-device mesh) or a mesh of one card; larger meshes
-        raise (ROADMAP A10b.7).
+        builds its one-device mesh) or a mesh of one card; training
+        across ranks raises (ROADMAP A10b.7b).
         ``deterministic``: run each step with deterministic algorithms
         (needed for bitwise recovery on the card; launch/steps.py)."""
         if mode not in ("adcc", "sync", "none"):

@@ -60,7 +60,7 @@ from .registry import family_module, model_class
 __all__ = ["params_from_reference", "cache_from_reference",
            "params_to_reference", "opt_to_reference", "opt_from_reference",
            "opt_tree", "reference_paths", "reference_tree", "nest", "tree_items",
-           "to_host"]
+           "to_host", "param_axes"]
 
 @functools.lru_cache(maxsize=None)
 def _leaves(cfg: ModelConfig) -> Tuple[Dict[str, str], Dict[str, str]]:
@@ -92,6 +92,24 @@ def reference_paths(cfg: ModelConfig) -> List[Tuple[str, List[str]]]:
     out += [(k, [f"layers.{i}.{v}" for i in range(cfg.n_layers)])
             for k, v in layer.items()]
     return sorted(out)
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """The logical-axes tree of ``cfg``'s parameters in the reference's
+    layout (what its ``init`` returns beside the parameters): each leaf
+    the tuple of dim names its module class gives in ``AXES``, a stacked
+    layer leaf's prefixed with "layers". ``sharding.partition`` maps the
+    names onto a mesh."""
+    one = model_class(cfg)(dataclasses.replace(cfg, n_layers=1),
+                           device="meta")
+    top, layer = _leaves(cfg)
+    out = {}
+    for path, name in list(top.items()) + [(k, "layers.0." + v)
+                                           for k, v in layer.items()]:
+        mod, _, attr = name.rpartition(".")
+        ax = type(one.get_submodule(mod)).AXES[attr]
+        out[path] = ("layers",) + ax if path.startswith("layers/") else ax
+    return nest(out)
 
 
 def nest(flat: Mapping[str, object]) -> Dict:

@@ -61,6 +61,8 @@ class HybridLM(nn.Module):
     """Parameters of the hybrid family's LM: ``embed``, the Mamba2
     ``layers``, the ``shared`` block, ``norm_f`` and ``head``."""
 
+    AXES = L.TABLE_AXES
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         if cfg.family != "hybrid":
@@ -109,9 +111,10 @@ def forward_train(cfg: ModelConfig, lm: HybridLM, batch: Dict, mesh=None,
     layers only, as in the reference (the shared block is not
     rematerialised there)."""
     LMmod.check_remat(remat)
-    L._no_mesh(mesh)
     tokens = batch["tokens"]
     B, S = tokens.shape
+    if L.ranked(mesh):
+        return _forward_ranked(cfg, lm, tokens, mesh)
     h = lm.embed[tokens].to(L.dtype_of(cfg.compute_dtype))
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     for start, length in segments(cfg):
@@ -120,6 +123,26 @@ def forward_train(cfg: ModelConfig, lm: HybridLM, batch: Dict, mesh=None,
             h = LMmod.remat_apply(
                 lambda h, lp=lp: SSM.mamba_layer(cfg, lp, h), h, remat)
     return LMmod._head(cfg, lm, lm.norm_f(h))
+
+
+def _forward_ranked(cfg: ModelConfig, lm: HybridLM, tokens: torch.Tensor,
+                    mesh) -> torch.Tensor:
+    """The forward across the ranks of a DeviceMesh: each rank runs the
+    shared block and the Mamba2 layers on its batch rows."""
+    units = []
+    for start, length in segments(cfg):
+        units += [lm.shared] + list(lm.layers[start:start + length])
+
+    def step(unit, h):
+        if unit is not lm.shared:
+            return SSM.mamba_layer(cfg, unit, h)
+        B, S = h.shape[:2]
+        positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
+        return _shared_block_apply(cfg, lm.shared, h, positions)[0]
+
+    return L.rows_across_ranks(
+        lm, mesh, lambda: lm.embed[tokens].to(L.dtype_of(cfg.compute_dtype)),
+        units, step, lambda h: LMmod._head(cfg, lm, lm.norm_f(h)))
 
 
 @torch.no_grad()
@@ -133,7 +156,9 @@ def forward(cfg: ModelConfig, lm: HybridLM, batch: Dict, mesh=None,
 
 def loss_fn(cfg: ModelConfig, lm: HybridLM, batch: Dict, mesh=None,
             remat: str = "none") -> torch.Tensor:
-    """Mean next-token cross entropy of ``batch`` (tokens, labels)."""
+    """Mean next-token cross entropy of ``batch`` (tokens, labels); raises
+    across the ranks of a DeviceMesh (ROADMAP A10b.7b)."""
+    L.no_ranks(mesh)
     return LMmod.cross_entropy(forward_train(cfg, lm, batch, mesh, remat),
                                batch["labels"])
 
@@ -161,16 +186,27 @@ def decode_step(cfg: ModelConfig, lm: HybridLM, cache: Dict, tokens:
     length. Each application of the shared block writes its keys and
     values into its own slot of ``cache["attn"]``, each Mamba2 layer its
     state into ``cache["ssm"]``, in place; returns (logits (B, 1,
-    vocab), cache)."""
-    L._no_mesh(mesh)
+    vocab), cache). Across the ranks of a DeviceMesh each rank steps its
+    batch rows, writes their caches, and returns the whole logits."""
     pos = int(pos)
-    B = tokens.shape[0]
-    h = lm.embed[tokens].to(L.dtype_of(cfg.compute_dtype))
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
-    for si, (start, length) in enumerate(segments(cfg)):
-        site = {name: c[si] for name, c in cache["attn"].items()}
-        h, _ = _shared_block_apply(cfg, lm.shared, h, positions,
-                                   cache=site, cache_index=pos)
-        h = SSM.decode_layers(cfg, lm.layers[start:start + length],
-                              cache["ssm"], h, first=start)
-    return LMmod._head(cfg, lm, lm.norm_f(h)), cache
+    ranked = L.ranked(mesh)
+    with L.gathered_weights(lm, mesh if ranked else None):
+        h = lm.embed[tokens].to(L.dtype_of(cfg.compute_dtype))
+        rows = slice(None)
+        if ranked:
+            ref = L.residual(h, mesh)
+            rows = L.local_rows(ref)
+            h = ref.to_local()
+        ssm = {k: c[:, rows] for k, c in cache["ssm"].items()}
+        positions = torch.full((h.shape[0], 1), pos, dtype=torch.int32,
+                               device=h.device)
+        for si, (start, length) in enumerate(segments(cfg)):
+            site = {name: c[si][rows] for name, c in cache["attn"].items()}
+            h, _ = _shared_block_apply(cfg, lm.shared, h, positions,
+                                       cache=site, cache_index=pos)
+            h = SSM.decode_layers(cfg, lm.layers[start:start + length],
+                                  ssm, h, first=start)
+        logits = LMmod._head(cfg, lm, lm.norm_f(h))
+    if ranked:
+        logits = L.rows_like(logits, ref).full_tensor()
+    return logits, cache

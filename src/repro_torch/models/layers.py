@@ -12,28 +12,44 @@ Conventions, as in the JAX package's ``models/layers.py``:
 * Attention rotates q and k by M-RoPE where ``cfg.mrope_sections`` (the
   vlm family), not at all for the audio family (its frontend embeds
   positions), and by RoPE otherwise.
-* Sharding (``shard_act``, ``gather_weights``, the mesh branch of
-  ``flash_sdpa``) is not part of the port yet: a ``mesh`` other than
-  ``None`` or one card (``launch.mesh.single_device_mesh``) raises.
+* Sharding follows the reference's. ``mesh`` is ``None``, a mesh of one
+  card (``launch.mesh.single_device_mesh``) or a ``DeviceMesh``
+  (``launch.mesh.make_mesh``). Across the ranks of a ``DeviceMesh`` the
+  residual stream is a DTensor whose batch rows are split over the data
+  axes; :func:`shard_act` pins it there at every layer boundary and
+  :func:`gathered_weights` gathers a layer's DTensor weights
+  (:func:`gather_weights`) while the layer runs on the rank's rows.
+  :func:`flash_sdpa` splits the query heads over the "model" axis, each
+  rank launching the flash kernel on its heads (:func:`flash_tp_body`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import contextlib
+import math
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
 
 __all__ = ["RMSNorm", "rmsnorm", "rope_freqs", "apply_rope", "apply_mrope",
-           "flash_sdpa",
+           "ranked", "no_ranks", "shard_act", "gather_weights",
+           "gathered_weights", "rows_across_ranks", "residual",
+           "local_rows", "rows_like", "flash_sdpa", "flash_tp_body",
            "flash_applicable", "Attention", "attention_apply",
            "attention_cache_init", "SwiGLU", "swiglu_apply", "dtype_of",
            "empty_weight", "dense_init_"]
 
 NEG_INF = -1e30
+
+# logical dim names of the embedding table and the output head; each
+# module class names its own weights' dims in ``AXES`` (attribute ->
+# names), which ``models.carry.param_axes`` reads
+TABLE_AXES = {"embed": ("vocab", "embed"), "head": ("embed", "vocab")}
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -44,12 +60,156 @@ def dtype_of(name: str) -> torch.dtype:
     return dt
 
 
-def _no_mesh(mesh) -> None:
-    """Raise for a mesh of more than one card; on one card the mesh
-    changes nothing here. (Imported when called: the launch package
-    imports the models.)"""
-    from ..launch.mesh import one_card
-    one_card(mesh)
+# --------------------------------------------------------------------------
+# sharding across the ranks of a DeviceMesh (the launch package imports
+# the models, so launch.mesh and sharding are imported when called)
+# --------------------------------------------------------------------------
+
+def ranked(mesh) -> bool:
+    """Whether ``mesh`` is a ``DeviceMesh`` (``launch.mesh.check_mesh``
+    raises for what is no mesh)."""
+    from ..launch.mesh import check_mesh, is_ranked
+    return is_ranked(check_mesh(mesh))
+
+
+def no_ranks(mesh) -> None:
+    """Raise for a ``DeviceMesh``: training across ranks comes with
+    ROADMAP A10b.7b."""
+    if ranked(mesh):
+        raise NotImplementedError(
+            "training across the ranks of a DeviceMesh comes with ROADMAP "
+            "A10b.7b; serve across them with forward / decode_step")
+
+
+def _dp_axes(mesh) -> Tuple[str, ...]:
+    from ..launch.mesh import mesh_shape
+    return tuple(a for a in ("pod", "data") if a in mesh_shape(mesh))
+
+
+def shard_act(x, mesh, *, seq_axis: Optional[int] = 1):
+    """Pin a (B, S, ...) activation's batch dim to the DP mesh axes: a
+    DTensor is redistributed to rows split over ("pod", "data") and
+    replicated over the other axes; a plain tensor, or a batch the DP
+    degree does not divide, is left as it is (the reference's
+    constraint, which changes no value). ``seq_axis`` is accepted, as in
+    the reference, and unused."""
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    from ..launch.mesh import mesh_shape
+    from ..sharding.partition import placements
+    dp = _dp_axes(mesh)
+    shape = mesh_shape(mesh)
+    if not dp or x.shape[0] % math.prod(shape[a] for a in dp):
+        return x
+    return x.redistribute(mesh, placements(mesh, (dp,)))
+
+
+# logical dims that stay TP-sharded when a layer's weights are gathered
+# (first matching dim wins: expert weights keep EP on the experts dim)
+_TP_NAMES = ("experts", "qheads", "mlp", "vocab", "ssm_inner")
+
+
+def gather_weights(lp, axes, mesh):
+    """ZeRO-3 weight gather at the layer boundary: every DTensor leaf of
+    ``lp`` (a tensor or nested dicts of them, ``axes`` the same tree of
+    logical dim names) is redistributed to its TP-only placement: the
+    first dim named in ``_TP_NAMES`` that the "model" axis divides stays
+    sharded over it, every other dim (the FSDP "embed" dim among them)
+    is gathered. A stacked leaf's leading "layers" name is dropped.
+    Plain tensors are left as they are, as the reference leaves every
+    leaf without a mesh."""
+    if mesh is None:
+        return lp
+    if isinstance(lp, dict):
+        return {k: gather_weights(v, axes[k], mesh) for k, v in lp.items()}
+    if not isinstance(lp, DTensor):
+        return lp
+    from ..launch.mesh import mesh_shape
+    from ..sharding.partition import placements
+    shape = mesh_shape(mesh)
+    ax = axes[1:] if axes and axes[0] == "layers" else axes
+    if len(ax) != lp.ndim or "model" not in shape:
+        return lp
+    entries, used = [], False
+    for i, a in enumerate(ax):
+        take = (not used and a in _TP_NAMES
+                and lp.shape[i] % shape["model"] == 0)
+        entries.append("model" if take else None)
+        used = used or take
+    return lp.redistribute(mesh, placements(mesh, tuple(entries)))
+
+
+@contextlib.contextmanager
+def gathered_weights(module: nn.Module, mesh,
+                     skip: Tuple[str, ...] = ()) -> Iterator[None]:
+    """While the enclosed code runs, each DTensor parameter of ``module``
+    (but those under the children named in ``skip``) is gathered by
+    :func:`gather_weights`, by the dim names its module class gives in
+    ``AXES``, and then read whole: the module holds the full tensor, and
+    its DTensor again afterwards. Plain parameters are left alone."""
+    swapped = []
+    for name, w in module.named_parameters():
+        if not isinstance(w, DTensor) or name.split(".")[0] in skip:
+            continue
+        mod, _, attr = name.rpartition(".")
+        owner = module.get_submodule(mod)
+        full = gather_weights(w, type(owner).AXES[attr], mesh).full_tensor()
+        owner._parameters[attr] = full
+        swapped.append((owner, attr, w))
+    try:
+        yield
+    finally:
+        for owner, attr, w in swapped:
+            owner._parameters[attr] = w
+
+
+def rows_across_ranks(module: nn.Module, mesh, embed, layers, step,
+                      head) -> torch.Tensor:
+    """A forward across the ranks of ``mesh`` in which every layer is
+    independent per batch row: ``embed()`` (B, S, D), whole on every
+    rank, becomes the residual DTensor (:func:`residual`), each layer of
+    ``layers`` runs ``step(layer, rows)`` on the rank's rows with its
+    weights gathered (:func:`gathered_weights`), and ``head(rows)`` gives
+    the rank's logits; the whole logits come back on every rank.
+    ``module``'s other DTensor weights are gathered for the whole call."""
+    with gathered_weights(module, mesh, skip=("layers",)):
+        h = residual(embed(), mesh)
+        for lp in layers:
+            h = shard_act(h, mesh)
+            with gathered_weights(lp, mesh):
+                h = shard_act(rows_like(step(lp, h.to_local()), h), mesh)
+        return rows_like(head(h.to_local()), h).full_tensor()
+
+
+def residual(x: torch.Tensor, mesh) -> DTensor:
+    """A (B, ...) tensor that every rank holds whole as the residual
+    stream's DTensor: its rows split over the data axes where the DP
+    degree divides B (:func:`shard_act`), replicated otherwise."""
+    return shard_act(DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim,
+                                        run_check=False), mesh)
+
+
+def local_rows(x: DTensor) -> slice:
+    """The global rows (dim 0) of ``x`` that this rank holds."""
+    mesh = x.device_mesh
+    lo, n = 0, x.shape[0]
+    for d, (p, c) in enumerate(zip(x.placements, mesh.get_coordinate())):
+        if isinstance(p, Shard) and p.dim == 0:
+            step = -(-n // mesh.size(d))
+            lo, n = lo + c * step, max(0, min(step, n - c * step))
+    return slice(lo, lo + n)
+
+
+def rows_like(local: torch.Tensor, ref: DTensor,
+              n: Optional[int] = None) -> DTensor:
+    """The rank's rows ``local`` of a global tensor of ``n`` rows (default
+    ``ref``'s) placed as ``ref``'s rows are; the trailing dims may differ
+    from ``ref``'s."""
+    shape = (n or ref.shape[0],) + tuple(local.shape[1:])
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local.contiguous(), ref.device_mesh,
+                              ref.placements, run_check=False,
+                              shape=shape, stride=stride)
 
 
 def empty_weight(shape: Tuple[int, ...], dtype: torch.dtype,
@@ -81,6 +241,8 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 class RMSNorm(nn.Module):
+    AXES = {"gamma": ("embed",)}
+
     def __init__(self, dim: int, eps: float, dtype: torch.dtype, device=None):
         super().__init__()
         self.eps = eps
@@ -145,21 +307,68 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
 # flash (blockwise) attention — forward-only prefill path
 # --------------------------------------------------------------------------
 
+def _tp(mesh) -> Tuple[int, int]:
+    """(TP degree, this rank's index on the "model" axis) of a mesh; of a
+    layout (``launch.mesh.Mesh``) its degree and index 0."""
+    from ..launch.mesh import is_ranked, mesh_shape
+    if mesh is None:
+        return 1, 0
+    tp = mesh_shape(mesh).get("model", 1)
+    return tp, (mesh.get_local_rank("model") if is_ranked(mesh) and tp > 1
+                else 0)
+
+
+def flash_tp_body(q_local: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  rank: int, tp: int, *, causal: bool = True) -> torch.Tensor:
+    """One rank's flash attention under tensor parallelism: q_local (B, S,
+    H / tp, hd) holds query heads ``rank * H_loc`` on; k, v (B, S, KV, hd)
+    hold every KV head. GQA orders heads contiguously (query head ``h``
+    reads KV head ``h // G``, ``G = H / KV``), so the rank's heads read the
+    ``n_kv_loc = max(1, ceil(H_loc / G))`` KV heads from ``kv0 = rank *
+    H_loc // G``, and the kernel is launched on those."""
+    H_loc = q_local.shape[2]
+    G = H_loc * tp // k.shape[2]
+    n_kv_loc = max(1, -(-H_loc // G))
+    kv0 = rank * H_loc // G
+    return flash_attention(q_local, k[:, :, kv0:kv0 + n_kv_loc],
+                           v[:, :, kv0:kv0 + n_kv_loc], causal=causal)
+
+
 def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh=None,
                *, causal: bool = True) -> torch.Tensor:
     """Blockwise attention for prefill through the flash kernel (no S^2
-    traffic to device memory). Forward only: the kernel has no backward."""
-    _no_mesh(mesh)
-    return flash_attention(q, k, v, causal=causal)
+    traffic to device memory). Forward only: the kernel has no backward.
+
+    q (B, S, H, hd), k/v (B, S, KV, hd): the rank's batch rows. Without a
+    "model" axis of more than one rank this is one launch. Across the
+    ``tp`` ranks of that axis each rank launches :func:`flash_tp_body` on
+    its ``H / tp`` query heads and the heads are gathered from the
+    ranks (``all_gather`` over the axis' group) in order."""
+    tp, idx = _tp(mesh)
+    if tp == 1:
+        return flash_attention(q, k, v, causal=causal)
+    ranked(mesh)      # a layout of several ranks has no group: raises
+    import torch.distributed as dist
+    H_loc = q.shape[2] // tp
+    out = flash_tp_body(q[:, :, idx * H_loc:(idx + 1) * H_loc], k, v, idx,
+                        tp, causal=causal).contiguous()
+    parts = [torch.empty_like(out) for _ in range(tp)]
+    dist.all_gather(parts, out, group=mesh.get_group("model"))
+    return torch.cat(parts, dim=2)
 
 
 def flash_applicable(cfg: ModelConfig, q_heads: int, seq: int,
                      mesh=None) -> bool:
-    """Whether the reference would take the flash branch. Without tensor
-    parallelism its head-tiling test always holds (every query head of a
-    KV group is local), which leaves ``seq % 8 == 0``."""
-    _no_mesh(mesh)
-    return seq % 8 == 0
+    """Whether the reference takes the flash branch: ``seq % 8 == 0``,
+    and under tensor parallelism (``tp`` ranks on "model") the query
+    heads split evenly and each rank's heads span whole KV groups, or
+    lie within one (``H_loc % G == 0`` or ``G % H_loc == 0``)."""
+    tp, _ = _tp(mesh)
+    if q_heads % tp != 0 or seq % 8 != 0:
+        return False
+    H_loc = q_heads // tp
+    G = q_heads // max(cfg.n_kv_heads, 1)
+    return (H_loc % G == 0) or (G % H_loc == 0)
 
 
 # --------------------------------------------------------------------------
@@ -209,6 +418,9 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
 
 class Attention(nn.Module):
     """GQA attention weights: wq (D, H*hd), wk/wv (D, KV*hd), wo (H*hd, D)."""
+
+    AXES = {"wq": ("embed", "qheads"), "wk": ("embed", "kvheads"),
+            "wv": ("embed", "kvheads"), "wo": ("qheads", "embed")}
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -285,6 +497,9 @@ def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int,
 
 class SwiGLU(nn.Module):
     """w_gate/w_up (D, F), w_down (F, D)."""
+
+    AXES = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")}
 
     def __init__(self, cfg: ModelConfig, d_ff: Optional[int] = None,
                  device=None):

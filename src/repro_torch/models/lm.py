@@ -37,10 +37,18 @@ Batches, as in the reference:
 A vlm decode step embeds text only and turns all three M-RoPE streams by
 the cache index, as the reference's does.
 
-``mesh`` is ``None`` or a mesh of one card (``launch.mesh``); on one card
-the moe family's layers then take the expert-parallel path with its
-capacity drops, as the reference's do on its one-device mesh, and
-nothing else changes.
+``mesh`` is ``None``, a mesh of one card or a ``DeviceMesh`` (``launch.
+mesh``). With a mesh the moe family's layers take the expert-parallel
+path with its capacity drops, as the reference's do. Across the ranks of
+a ``DeviceMesh`` (:func:`forward`, :func:`decode_step`) every rank
+passes the same batch and the same weights (plain tensors, or DTensors
+that each layer gathers while it runs), and the residual stream is a
+DTensor whose batch rows split over the data axes (``layers.shard_act``
+at each layer boundary): each rank runs the layers on its rows, the
+flash prefill splits query heads over "model" (``layers.flash_sdpa``),
+the MoE routes tokens over "model" with all-to-alls
+(``moe.moe_apply_ep``), and every rank gets the whole logits back.
+Training across ranks (:func:`loss_fn`) comes with ROADMAP A10b.7b.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
@@ -108,6 +117,8 @@ class LM(nn.Module):
     loads them. ``embed`` is None where ``not cfg.embed_inputs``, ``head``
     where the head is the embedding table."""
 
+    AXES = L.TABLE_AXES
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         check_ported(cfg)
@@ -147,15 +158,21 @@ def abstract_init(cfg: ModelConfig) -> LM:
 # ---------------------------------------------------------------------------
 
 def _ffn_block(cfg: ModelConfig, lp: Block, h_norm: torch.Tensor,
-               mesh=None) -> torch.Tensor:
+               mesh=None, ref: Optional[DTensor] = None) -> torch.Tensor:
+    """The FFN on h_norm (B, S, D); across ranks h_norm holds the rank's
+    rows of the residual DTensor ``ref``, and the MoE sees every token as
+    a DTensor placed like those rows."""
     if not cfg.n_experts:
         return L.swiglu_apply(lp.ffn, h_norm)
     B, S, D = h_norm.shape
     tokens = h_norm.reshape(B * S, D)
     if mesh is None:
         y = MOE.moe_apply_dense(cfg, lp.moe, tokens)
-    else:
+    elif ref is None:
         y = MOE.moe_apply_ep(cfg, lp.moe, tokens, mesh)
+    else:
+        y = MOE.moe_apply_ep(cfg, lp.moe, L.rows_like(
+            tokens, ref, ref.shape[0] * S), mesh).to_local()
     if cfg.n_shared_experts:
         y = y + L.swiglu_apply(lp.shared, tokens)
     return y.reshape(B, S, D)
@@ -165,9 +182,11 @@ def _layer_apply(cfg: ModelConfig, lp: Block, h: torch.Tensor,
                  positions: Optional[torch.Tensor], mesh=None,
                  cache: Optional[Dict[str, torch.Tensor]] = None,
                  cache_index: Optional[int] = None, flash: bool = False,
-                 mrope: Optional[torch.Tensor] = None):
+                 mrope: Optional[torch.Tensor] = None,
+                 ref: Optional[DTensor] = None):
     """One block on h (B, S, D). ``positions`` (B, S) drive RoPE,
-    ``mrope`` (3, B, S) M-RoPE (vlm; ``positions`` is then None)."""
+    ``mrope`` (3, B, S) M-RoPE (vlm; ``positions`` is then None). Across
+    ranks h is the rank's rows of the residual DTensor ``ref``."""
     h_norm = lp.norm_attn(h)
     if cfg.use_mla:
         # MLA has no flash branch, in the reference as here
@@ -179,7 +198,7 @@ def _layer_apply(cfg: ModelConfig, lp: Block, h: torch.Tensor,
             cfg, lp.attn, h_norm, positions, mrope_positions=mrope,
             cache=cache, cache_index=cache_index, mesh=mesh, flash=flash)
     h = h + attn_out
-    h = h + _ffn_block(cfg, lp, lp.norm_ffn(h), mesh)
+    h = h + _ffn_block(cfg, lp, lp.norm_ffn(h), mesh, ref)
     return h, new_cache
 
 
@@ -259,7 +278,8 @@ def forward_train(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
     whichever weights require them, each layer under
     :func:`remat_apply`."""
     check_remat(remat)
-    L._no_mesh(mesh)
+    if L.ranked(mesh):
+        return _forward_ranked(cfg, lm, batch, mesh, flash)
     h, positions, mrope = _embed_batch(cfg, lm, batch)
     for lp in lm.layers:
         h = remat_apply(lambda h, lp=lp: _layer_apply(
@@ -267,6 +287,26 @@ def forward_train(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
             remat)
     h = lm.norm_f(h)
     return _head(cfg, lm, h)
+
+
+def _forward_ranked(cfg: ModelConfig, lm: LM, batch: Dict, mesh,
+                    flash: bool) -> torch.Tensor:
+    """The forward across the ranks of a DeviceMesh (see the module's
+    note): the whole logits on every rank."""
+    with L.gathered_weights(lm, mesh, skip=("layers",)):
+        h, positions, mrope = _embed_batch(cfg, lm, batch)
+        h = L.residual(h, mesh)
+        rows = L.local_rows(h)
+        positions = None if positions is None else positions[rows]
+        mrope = None if mrope is None else mrope[:, rows]
+        for lp in lm.layers:
+            h = L.shard_act(h, mesh)
+            with L.gathered_weights(lp, mesh):
+                out, _ = _layer_apply(cfg, lp, h.to_local(), positions, mesh,
+                                      flash=flash, mrope=mrope, ref=h)
+            h = L.shard_act(L.rows_like(out, h), mesh)
+        logits = _head(cfg, lm, lm.norm_f(h.to_local()))
+    return L.rows_like(logits, h).full_tensor()
 
 
 @torch.no_grad()
@@ -300,7 +340,9 @@ def loss_fn(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
             remat: str = "none") -> torch.Tensor:
     """Mean cross entropy of ``batch``'s logits against its labels (those
     of -100 left out) with plain attention, as the reference's (the flash
-    kernel has no backward)."""
+    kernel has no backward). Across the ranks of a DeviceMesh it raises:
+    training across ranks comes with ROADMAP A10b.7b."""
+    L.no_ranks(mesh)
     logits = forward_train(cfg, lm, batch, mesh, remat=remat)
     return cross_entropy(logits, batch["labels"])
 
@@ -328,17 +370,28 @@ def decode_step(cfg: ModelConfig, lm: LM, cache: Dict[str, torch.Tensor],
     step embeds text and turns all three M-RoPE streams by ``pos``."""
     if cfg.family == "audio":
         raise ValueError("encoder-only architecture has no decode step")
-    L._no_mesh(mesh)
+    ranked = L.ranked(mesh)
     dt = L.dtype_of(cfg.compute_dtype)
     pos = int(pos)
-    h = lm.embed[tokens].to(dt)
-    B = tokens.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
-    mrope = (positions[None].expand(3, B, 1) if cfg.mrope_sections
-             else None)
-    for i, lp in enumerate(lm.layers):
-        layer_cache = {name: c[i] for name, c in cache.items()}
-        h, _ = _layer_apply(cfg, lp, h, positions, mesh, cache=layer_cache,
-                            cache_index=pos, mrope=mrope)
-    h = lm.norm_f(h)
-    return _head(cfg, lm, h), cache
+    with L.gathered_weights(lm, mesh, skip=("layers",)):
+        h = lm.embed[tokens].to(dt)
+        rows, ref = slice(None), None
+        if ranked:
+            ref = L.residual(h, mesh)
+            rows = L.local_rows(ref)
+            h = ref.to_local()
+        B = h.shape[0]
+        positions = torch.full((B, 1), pos, dtype=torch.int32,
+                               device=h.device)
+        mrope = (positions[None].expand(3, B, 1) if cfg.mrope_sections
+                 else None)
+        for i, lp in enumerate(lm.layers):
+            layer_cache = {name: c[i][rows] for name, c in cache.items()}
+            with L.gathered_weights(lp, mesh):
+                h, _ = _layer_apply(cfg, lp, h, positions, mesh,
+                                    cache=layer_cache, cache_index=pos,
+                                    mrope=mrope, ref=ref)
+        logits = _head(cfg, lm, lm.norm_f(h))
+    if ranked:
+        logits = L.rows_like(logits, ref).full_tensor()
+    return logits, cache

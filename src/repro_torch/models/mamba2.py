@@ -45,6 +45,11 @@ class Mamba2(nn.Module):
     out_proj (d_inner, D) in ``cfg.param_dtype``; A_log, dt_bias and
     D_skip (H,) in float32."""
 
+    AXES = {"in_proj": ("embed", "ssm_proj"),
+            "conv_w": ("conv_width", "ssm_conv"), "conv_b": ("ssm_conv",),
+            "A_log": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+            "D_skip": ("ssm_heads",), "out_proj": ("ssm_inner", "embed")}
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         D, N = cfg.d_model, cfg.ssm_state

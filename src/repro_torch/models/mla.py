@@ -39,6 +39,10 @@ class MLA(nn.Module):
     """wq (D, H*(qk_nope+qk_rope)), w_dkv (D, r), w_kr (D, qk_rope),
     w_uk (r, H*qk_nope), w_uv (r, H*v_head_dim), wo (H*v_head_dim, D)."""
 
+    AXES = {"wq": ("embed", "qheads"), "w_dkv": ("embed", "kv_lora"),
+            "w_kr": ("embed", "kvheads"), "w_uk": ("kv_lora", "qheads"),
+            "w_uv": ("kv_lora", "qheads"), "wo": ("qheads", "embed")}
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         D, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank

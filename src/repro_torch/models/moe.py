@@ -22,13 +22,14 @@ Two choices keep the port's routing equal to the reference's:
   scatter, and deterministic on the card (the trainer runs under
   ``torch.use_deterministic_algorithms``).
 
-* :func:`moe_apply_ep` — the reference's expert-parallel path on its
-  one-device mesh, which is where the reference's trainer runs its MoE
-  layers: each expert computes a window of equal capacity over the
-  expert-sorted assignments, and an expert's assignments beyond its
-  window are dropped (their outputs are zero). On one card the token
-  all-to-alls are the identity. Meshes of several cards come with
-  ROADMAP A10b.7.
+* :func:`moe_apply_ep` — the reference's expert-parallel path: tokens
+  sharded over every mesh axis, experts over "model", each rank running
+  :func:`ep_body` (top-K routing, a capacity-bucketed all-to-all to the
+  experts' owners, an equal-capacity grouped SwiGLU over the rank's
+  experts, the all-to-all back and a float32 combine). On a mesh of one
+  card, where the reference's trainer runs its MoE layers, the
+  all-to-alls are identities; across the ranks of a ``DeviceMesh`` they
+  are ``all_to_all_single`` on the "model" group.
 
 Two runs of a model in bf16 that round at other points (two packages,
 flash and plain attention, decode and prefill) reach a router with
@@ -41,7 +42,7 @@ flip stay under ``ROUTING_FLIP_SHARE`` of the decisions.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -64,6 +65,11 @@ EP_COUNTS = {"assignments": 0, "dropped": 0}
 class MoE(nn.Module):
     """router (D, E) float32, always; expert stacks w_gate / w_up (E, D, F)
     and w_down (E, F, D) in ``cfg.param_dtype``."""
+
+    AXES = {"router": ("embed", "experts_r"),
+            "w_gate": ("experts", "embed", "mlp_e"),
+            "w_up": ("experts", "embed", "mlp_e"),
+            "w_down": ("experts", "mlp_e", "embed")}
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -154,49 +160,164 @@ def _local_expert_ffn(x_sorted: torch.Tensor, group_sizes: torch.Tensor,
     return torch.where(covered, y, 0.0).to(dt)
 
 
-def moe_apply_ep(cfg: ModelConfig, p: MoE, x: torch.Tensor,
-                 mesh) -> torch.Tensor:
-    """x: (T, D) -> (T, D) in x's type: the reference's ``moe_apply_ep``
-    on a mesh of one card (its ``_ep_shard_fn`` at ``ep = 1``). Raises
-    for a mesh of several cards (ROADMAP A10b.7).
+def _local_expert_ffn_ragged(x_sorted: torch.Tensor, group_sizes: torch.Tensor,
+                             wg: torch.Tensor, wu: torch.Tensor,
+                             wd: torch.Tensor) -> torch.Tensor:
+    """The reference's grouped SwiGLU by ``jax.lax.ragged_dot``: group
+    ``e``'s rows (consecutive, ``group_sizes[e]`` of them) times expert
+    ``e``'s weights, nothing dropped; rows past the groups are zero. No
+    arch takes it (the reference keeps it as an option for backends with
+    native ragged products); one product per expert here."""
+    dt = x_sorted.dtype
+    out = torch.zeros_like(x_sorted)
+    sizes = [int(g) for g in group_sizes]
+    off = 0
+    for e, g in enumerate(sizes):
+        xe = x_sorted[off:off + g]
+        h = nn.functional.silu(xe @ wg[e].to(dt)) * (xe @ wu[e].to(dt))
+        out[off:off + g] = h @ wd[e].to(dt)
+        off += g
+    return out
 
-    The ``T * K`` assignments, in token-major order, fill a send buffer
-    of ``capacity`` rows (``ceil(T * K * capacity_factor)``; rows left
-    over belong to the "trash group" ``E``, which is never computed).
-    The rows are sorted by expert id (stably, as ``jnp.argsort``),
-    computed by :func:`_local_expert_ffn`, put back in order and combined
-    in float32 over each token's ``K`` assignments with its router
-    weights. The permutation and its inverse are gathers, so the
-    backward pass is deterministic on the card."""
-    from ..launch.mesh import one_card
-    if one_card(mesh) is None:
-        raise ValueError("moe_apply_ep needs a mesh; without one the "
-                         "reference runs moe_apply_dense")
+
+def ep_capacity(cfg: ModelConfig, t_loc: int, ep: int) -> int:
+    """Rows each destination takes from one rank: ``ceil(T_loc * K *
+    capacity_factor / ep)``, computed as the reference does."""
+    return max(1, int(-(-t_loc * cfg.experts_per_token
+                        * cfg.capacity_factor // ep)))
+
+
+def ep_body(cfg: ModelConfig, p: MoE, x: torch.Tensor, idx: int, ep: int,
+            capacity: int, exchange) -> torch.Tensor:
+    """One rank's share of the expert-parallel MoE (the reference's
+    ``_ep_shard_fn``): x (T, D), the rank's tokens -> (T, D) in x's type.
+    ``idx`` is the rank's index on the expert axis, whose ``ep`` ranks
+    hold ``E / ep`` experts each (this rank experts ``idx * E_loc`` on);
+    ``exchange(t)`` is the all-to-all of that axis, sending the i-th of
+    ``ep`` equal row blocks of ``t`` to rank i and returning the blocks
+    received, in rank order.
+
+    The ``T * K`` assignments, in token-major order, go to the rank that
+    owns their expert; each destination takes the first ``capacity`` of
+    them and drops the rest (their outputs are zero). Rows left empty
+    carry the local expert id ``E_loc``, the "trash group", which sorts
+    after every expert and is never computed. The reference fills its
+    send buffer by one scatter in which a dropped assignment writes a
+    zero row and ``E_loc`` at its bucket's first slot, after the kept
+    ones; its CPU backend applies the writes in order, so a bucket that
+    overflows also loses its first assignment, and so does the port's.
+    The owner sorts what it received by local expert (stably), computes
+    it by :func:`_local_expert_ffn`, sends it back in place, and each
+    token combines its ``K`` outputs in float32 with its router weights.
+    The permutations are gathers, so a backward pass is deterministic on
+    the card."""
     T, D = x.shape
-    K, E = cfg.experts_per_token, cfg.n_experts
-    capacity = max(1, int(-(-T * K * cfg.capacity_factor // 1)))
+    K = cfg.experts_per_token
+    E_loc = cfg.n_experts // ep
     weights, ids = router_topk(cfg, p.router, x)                 # (T, K)
     n = T * K
-    # one destination: an assignment's rank in its bucket is its place in
-    # token-major order, and the all-to-alls there and back are identities
-    rank = torch.arange(n, device=x.device)
+    fids = ids.reshape(-1)
+    dest, lid = fids // E_loc, fids % E_loc
+    if ep == 1:
+        # one destination: an assignment's rank is its place in order
+        rank = torch.arange(n, device=x.device)
+    else:
+        onehot = nn.functional.one_hot(dest, ep)
+        rank = (torch.cumsum(onehot, 0) - 1).gather(1, dest[:, None])[:, 0]
     keep = rank < capacity
-    slot = torch.where(keep, rank, 0)
-    kept = min(capacity, n)
+    slot = dest * capacity + torch.where(keep, rank, 0)
     tok = x[:, None, :].expand(T, K, D).reshape(n, D)            # repeat K
-    send = torch.cat([tok[:kept], x.new_zeros((capacity - kept, D))])
-    send_lid = torch.cat([ids.reshape(-1)[:kept],
-                          ids.new_full((capacity - kept,), E)])
-    order = torch.argsort(send_lid, stable=True)
-    inv = torch.argsort(order, stable=True)
-    gs = torch.bincount(send_lid, minlength=E + 1)[:E]
+    kept_slots = slot[keep]
+    send = x.new_zeros((ep * capacity, D))
+    send[kept_slots] = tok[keep]
+    send_lid = ids.new_full((ep * capacity,), E_loc)
+    send_lid[kept_slots] = lid[keep]
+    n_kept = int(keep.sum())
+    if n_kept < n:
+        overflow = torch.unique(dest[~keep]) * capacity
+        send[overflow] = 0.0
+        send_lid[overflow] = E_loc
     EP_COUNTS["assignments"] += n
-    EP_COUNTS["dropped"] += n - kept
-    y = _local_expert_ffn(send[order], gs, p.w_gate, p.w_up, p.w_down)[inv]
-    y_assign = y[slot] * keep[:, None].to(y.dtype)
+    EP_COUNTS["dropped"] += n - n_kept
+    recv, rlid = exchange(send), exchange(send_lid)
+    order = torch.argsort(rlid, stable=True)
+    inv = torch.argsort(order, stable=True)
+    gs = torch.bincount(rlid, minlength=E_loc + 1)[:E_loc]
+    e0 = idx * E_loc
+    y = _local_expert_ffn(recv[order], gs, p.w_gate[e0:e0 + E_loc],
+                          p.w_up[e0:e0 + E_loc],
+                          p.w_down[e0:e0 + E_loc])[inv]
+    back = exchange(y)
+    y_assign = back[slot] * keep[:, None].to(back.dtype)
     y_tok = (y_assign.to(F32).reshape(T, K, D)
              * weights.reshape(T, K, 1)).sum(dim=1)
     return y_tok.to(x.dtype)
+
+
+def _all_to_all(group):
+    """The all-to-all of one process group as an ``exchange`` for
+    :func:`ep_body`."""
+    import torch.distributed as dist
+
+    def exchange(t: torch.Tensor) -> torch.Tensor:
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t.contiguous(), group=group)
+        return out
+
+    return exchange
+
+
+def moe_apply_ep(cfg: ModelConfig, p: MoE, x, mesh, *,
+                 ep_axis: str = "model", capacity: Optional[int] = None):
+    """The reference's ``moe_apply_ep``: tokens sharded over every axis of
+    ``mesh``, experts over ``ep_axis``, each rank running :func:`ep_body`.
+
+    On a mesh of one card (``launch.mesh.single_device_mesh()``) x is
+    (T, D) and so is the result, and the all-to-alls are identities. On
+    a ``DeviceMesh`` x is a DTensor (N, D) of every token, placed as the
+    caller's rows are; the N tokens are padded to a multiple of the mesh
+    size, rank ``r`` (in row-major order of the mesh) takes the r-th
+    block of them, the all-to-alls run over the ``ep_axis`` group
+    (``all_to_all_single``), and the result is a DTensor placed as x.
+    ``capacity`` overrides :func:`ep_capacity`, as the reference's
+    does."""
+    from ..launch.mesh import check_mesh, is_ranked, mesh_shape
+    if check_mesh(mesh) is None:
+        raise ValueError("moe_apply_ep needs a mesh; without one the "
+                         "reference runs moe_apply_dense")
+    if not is_ranked(mesh):
+        return ep_body(cfg, p, x, 0, 1,
+                       capacity or ep_capacity(cfg, x.shape[0], 1),
+                       lambda t: t)
+    from torch.distributed.tensor import DTensor, Shard
+
+    from ..sharding.partition import place
+    shape = mesh_shape(mesh)
+    ep = shape[ep_axis]
+    if cfg.n_experts % ep:
+        raise ValueError(f"{cfg.n_experts} experts do not split over "
+                         f"{ep} ranks of {ep_axis!r}")
+    n_total = mesh.size()
+    N, D = x.shape
+    pad = (-N) % n_total
+    t_loc = (N + pad) // n_total
+    by_all = (Shard(0),) * mesh.ndim
+    if pad:
+        flat = 0
+        for a, c in zip(shape, mesh.get_coordinate()):
+            flat = flat * shape[a] + c
+        xg = nn.functional.pad(x.full_tensor(), (0, 0, 0, pad))
+        x_loc = xg[flat * t_loc:(flat + 1) * t_loc]
+    else:
+        x_loc = x.redistribute(mesh, by_all).to_local()
+    y_loc = ep_body(cfg, p, x_loc, mesh.get_local_rank(ep_axis), ep,
+                    capacity or ep_capacity(cfg, t_loc, ep),
+                    _all_to_all(mesh.get_group(ep_axis)))
+    y = DTensor.from_local(y_loc, mesh, by_all, run_check=False,
+                           shape=(N + pad, D), stride=(D, 1))
+    if pad:
+        return place(y.full_tensor()[:N], mesh, x.placements)
+    return y.redistribute(mesh, x.placements)
 
 
 # ---------------------------------------------------------------------------

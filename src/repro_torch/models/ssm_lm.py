@@ -60,6 +60,8 @@ class SSMLM(nn.Module):
     ``device`` without values; :meth:`init_` draws them, ``models.carry``
     loads them."""
 
+    AXES = L.TABLE_AXES
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         if cfg.family != "ssm":
@@ -101,7 +103,12 @@ def forward_train(cfg: ModelConfig, lm: SSMLM, batch: Dict, mesh=None,
     whichever weights require them, each layer under
     ``lm.remat_apply``."""
     LMmod.check_remat(remat)
-    L._no_mesh(mesh)
+    if L.ranked(mesh):
+        return L.rows_across_ranks(
+            lm, mesh, lambda: lm.embed[batch["tokens"]].to(
+                L.dtype_of(cfg.compute_dtype)), lm.layers,
+            lambda lp, h: mamba_layer(cfg, lp, h),
+            lambda h: LMmod._head(cfg, lm, lm.norm_f(h)))
     h = lm.embed[batch["tokens"]].to(L.dtype_of(cfg.compute_dtype))
     for lp in lm.layers:
         h = LMmod.remat_apply(lambda h, lp=lp: mamba_layer(cfg, lp, h), h,
@@ -120,7 +127,9 @@ def forward(cfg: ModelConfig, lm: SSMLM, batch: Dict, mesh=None,
 
 def loss_fn(cfg: ModelConfig, lm: SSMLM, batch: Dict, mesh=None,
             remat: str = "none") -> torch.Tensor:
-    """Mean next-token cross entropy of ``batch`` (tokens, labels)."""
+    """Mean next-token cross entropy of ``batch`` (tokens, labels); raises
+    across the ranks of a DeviceMesh (ROADMAP A10b.7b)."""
+    L.no_ranks(mesh)
     return LMmod.cross_entropy(forward_train(cfg, lm, batch, mesh, remat),
                                batch["labels"])
 
@@ -156,8 +165,19 @@ def decode_step(cfg: ModelConfig, lm: SSMLM, cache: Dict[str, torch.Tensor],
     """One decode step. tokens: (B, 1) int; ``pos`` (the current length)
     is accepted for the interface: the state has no positions. Writes
     the new states into ``cache`` in place and returns (logits (B, 1,
-    vocab), cache)."""
-    L._no_mesh(mesh)
-    h = lm.embed[tokens].to(L.dtype_of(cfg.compute_dtype))
-    h = decode_layers(cfg, lm.layers, cache, h)
-    return LMmod._head(cfg, lm, lm.norm_f(h)), cache
+    vocab), cache). Across the ranks of a DeviceMesh each rank steps its
+    batch rows (``layers.shard_act``), writes their states, and returns
+    the whole logits."""
+    if not L.ranked(mesh):
+        h = lm.embed[tokens].to(L.dtype_of(cfg.compute_dtype))
+        h = decode_layers(cfg, lm.layers, cache, h)
+        return LMmod._head(cfg, lm, lm.norm_f(h)), cache
+    with L.gathered_weights(lm, mesh):
+        ref = L.residual(lm.embed[tokens].to(L.dtype_of(cfg.compute_dtype)),
+                         mesh)
+        rows = L.local_rows(ref)
+        h = decode_layers(cfg, lm.layers,
+                          {k: c[:, rows] for k, c in cache.items()},
+                          ref.to_local())
+        logits = LMmod._head(cfg, lm, lm.norm_f(h))
+    return L.rows_like(logits, ref).full_tensor(), cache

@@ -136,7 +136,20 @@ class TestCGInvariantErrors:
         cut = batched.cg_invariant_errors(P, Q, R, Z, b, op)
         assert batched.profile["launch_groups"] == -(-len(P) // 3)
         np.testing.assert_allclose(cut[0], whole[0], rtol=1e-12, atol=1e-20)
-        np.testing.assert_allclose(cut[1], whole[1], rtol=1e-12, atol=1e-20)
+        # S z comes from one float64 matmul over 3 rows or over 7, and a
+        # CPU BLAS may order a row's n-term dot products by the row count
+        # (1e-17 apart here). Two orders of sum_j S_ij z_j differ by at
+        # most 2 gamma_n (|S| |z|)_i, gamma_n = n u / (1 - n u), and so
+        # does the residual's norm; resid_rel divides by ||b||.
+        S = op[1].numpy()
+        u = np.finfo(np.float64).eps / 2
+        gamma_n = n * u / (1 - n * u)
+        bound = (2 * gamma_n * np.linalg.norm(np.abs(Z) @ np.abs(S).T, axis=1)
+                 / np.linalg.norm(b) + 2 * gamma_n * whole[1])
+        assert np.all(np.abs(cut[1] - whole[1]) <= bound)
+        # the verdicts the engine takes from them are the same
+        assert np.array_equal(cut[0] <= ORTH_TOL, whole[0] <= ORTH_TOL)
+        assert np.array_equal(cut[1] <= RES_TOL, whole[1] <= RES_TOL)
 
     def test_solver_agrees_across_packages(self):
         from repro_torch.algorithms import cg as port_cg

@@ -67,7 +67,7 @@ from repro.optim import adamw as ref_adamw
 from repro.optim import init_error_state as ref_init_error_state
 from repro.sharding.partition import make_rules
 from repro_torch.configs.base import TrainConfig
-from repro_torch.core.acc_state import flatten_checksums
+from torch_parity import assert_step_checksums
 from repro_torch.data import SyntheticPipeline
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.launch.mesh import single_device_mesh
@@ -591,15 +591,7 @@ def test_three_train_steps_match_reference(arch):
         for k in ("loss", "grad_norm"):
             np.testing.assert_allclose(float(m[k]), float(r_m[k]),
                                        rtol=1e-5)
-        for k in ("params", "opt", "updates"):
-            got = np.array(flatten_checksums(c[k]))
-            want = np.array(ref_acc.flatten_checksums(r_c[k]))
-            assert got.shape == want.shape, k
-            if k == "updates":
-                np.testing.assert_allclose(got, want, rtol=0,
-                                           atol=1e-4 * np.abs(want).max())
-            else:
-                np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
+        assert_step_checksums(c, r_c, tcfg, t + 1)
     jax.tree.map(lambda a, b: np.testing.assert_allclose(
         a, np.asarray(b), rtol=0, atol=2 * tcfg.learning_rate + 1e-6),
         params_to_reference(cfg, model), r_p)

@@ -59,13 +59,12 @@ from repro.optim import adamw as ref_adamw
 from repro.optim import init_error_state as ref_init_error_state
 from repro.sharding.partition import make_rules
 from repro_torch.configs.base import TrainConfig
-from repro_torch.core.acc_state import flatten_checksums
+from torch_parity import assert_step_checksums
 from repro_torch.data import SyntheticPipeline
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.mesh import Mesh, single_device_mesh as one_card_mesh
-from repro_torch.launch.steps import (build_opt_shardings, build_serve_step,
-                                      build_train_step)
+from repro_torch.launch.steps import build_serve_step, build_train_step
 from repro_torch.launch.train import ADCCTrainer
 from repro_torch.models import build_model, get_config, list_archs
 from repro_torch.models.carry import (params_from_reference,
@@ -262,15 +261,7 @@ def test_three_train_steps_match_reference(arch):
         for k in ("loss", "grad_norm"):
             np.testing.assert_allclose(float(m[k]), float(r_m[k]),
                                        rtol=1e-5)
-        for k in ("params", "opt", "updates"):
-            got = np.array(flatten_checksums(c[k]))
-            want = np.array(ref_acc.flatten_checksums(r_c[k]))
-            assert got.shape == want.shape, k
-            if k == "updates":
-                np.testing.assert_allclose(got, want, rtol=0,
-                                           atol=1e-4 * np.abs(want).max())
-            else:
-                np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
+        assert_step_checksums(c, r_c, tcfg, t + 1)
     mine = params_to_reference(cfg, lm)
     jax.tree.map(lambda a, b: np.testing.assert_allclose(
         a, np.asarray(b), rtol=0, atol=2 * lr_max + 1e-6), mine, r_p)
@@ -301,8 +292,8 @@ def test_sharding_entry_points_wait_for_their_slice():
     api = build_model(get_config("llama3-8b").reduced())
     with pytest.raises(NotImplementedError, match="A10b.7"):
         build_train_step(api, TrainConfig(), rules=object())
-    with pytest.raises(NotImplementedError, match="A10b.7"):
-        build_opt_shardings(TrainConfig(), None, None, None)
+    with pytest.raises(NotImplementedError, match="A10b.7b"):
+        build_train_step(api, TrainConfig(), Mesh(("data", "model"), (2, 2)))
     with pytest.raises(NotImplementedError, match="A10b.7"):
         ADCCTrainer(api.cfg, TrainConfig(), "unused", mesh=object())
 
@@ -310,8 +301,9 @@ def test_sharding_entry_points_wait_for_their_slice():
 def test_one_card_mesh_is_taken_and_larger_ones_raise(tmp_path):
     """A mesh of one card, what the reference's trainer builds when it is
     given none, goes through ``build_train_step``, ``build_serve_step``,
-    the trainer and the model; a mesh of two cards raises, naming ROADMAP
-    A10b.7."""
+    the trainer and the model. A layout of two ranks raises: training,
+    naming ROADMAP A10b.7b; serving, naming ``make_mesh`` (serving across
+    ranks needs a DeviceMesh bound to a process group)."""
     mesh = one_card_mesh()
     assert (mesh.axis_names, mesh.shape, mesh.size) == \
         (("data", "model"), {"data": 1, "model": 1}, 1)
@@ -325,11 +317,13 @@ def test_one_card_mesh_is_taken_and_larger_ones_raise(tmp_path):
     assert torch.equal(api.forward(lm, batch, mesh), api.forward(lm, batch))
     two = Mesh(("data", "model"), (2, 1))
     for call in (lambda: build_train_step(api, TrainConfig(), two),
-                 lambda: build_serve_step(api, two, batch=1, max_len=4),
                  lambda: ADCCTrainer(api.cfg, TrainConfig(), "unused",
-                                     mesh=two),
+                                     mesh=two)):
+        with pytest.raises(NotImplementedError, match="A10b.7b"):
+            call()
+    for call in (lambda: build_serve_step(api, two, batch=1, max_len=4),
                  lambda: api.forward(lm, batch, two)):
-        with pytest.raises(NotImplementedError, match="A10b.7"):
+        with pytest.raises(ValueError, match="make_mesh"):
             call()
 
 
