@@ -10,6 +10,7 @@ with itself on the card.
     python3 chip_smoke.py --phases card,serve_ssm       # ssm and hybrid
     python3 chip_smoke.py --phases card,serve_vlm_audio # vlm and audio
     python3 chip_smoke.py --phases card,examples,mesh   # the example twins, ranks
+    python3 chip_smoke.py --phases card,build,mesh,mesh_train  # across ranks
 
 Phases, each printing one JSON line:
 
@@ -118,8 +119,16 @@ Phases, each printing one JSON line:
            for ranks 0-3 (8 query heads over 2 KV heads each), each launch
            held to the kernel's plain version and the four outputs,
            concatenated over heads, equal to one whole launch bit for bit;
-           one deepseek-v2-lite-16b MoE layer (64 experts, 16 per rank,
-           K = 6; 2 x 1024 tokens, float32) through the EP body of 4 ranks
+           then the whole attention layer through ``attention_body`` in 4
+           threads, each rank projecting its own query heads from its
+           columns of wq and multiplying by its rows of wo, the ranks'
+           outputs summed in float32 in this process where the mesh sums
+           them over "model", within 2 bf16 ulps of the layer output's
+           largest value of one card's layer, each B3 launch held to its
+           plain version, and each rank's materialised weight bytes beside
+           the whole layer's; one deepseek-v2-lite-16b MoE layer (64
+           experts, 16 per rank, K = 6; 2 x 1024 tokens, float32) through
+           the EP body of 4 ranks, each handed its own 16 experts' stacks,
            with an all-to-all between threads of this script, equal to
            moe_apply_dense within 1e-5 where nothing drops, and its drop
            share at the config's capacity factor. (b) the distributed path
@@ -130,6 +139,22 @@ Phases, each printing one JSON line:
            path, then llama3-8b's flash prefill (2 x 4096) through
            ``flash_sdpa`` with the mesh, equal bit for bit to the one-card
            prefill
+  mesh_train
+           training across ranks at world size 1: an NCCL process group of
+           one rank and ``make_mesh((1, 1), ("data", "model"))``; the ADCC
+           trainer at llama3-8b's full width (2 of 32 layers, 2 x 4096)
+           and at deepseek-v2-lite-16b's full width (2 of 27 layers, 2 x
+           1024, on ``moe_apply_ep``), AdamW, remat "dots": each trainer's
+           steps through the mesh (parameters and optimizer state placed
+           as DTensors, the loss's numerator and count summed over "data",
+           the gradients reduced by the layers' placements) must equal the
+           one-card trainer's bit for bit, in every ledger record (loss
+           and every checksum) and in the final parameters; for llama3-8b
+           slots after steps 1 and 3, the newer torn, and a restart
+           through the mesh that rejects it, recovers the step-1 slot and
+           ends bitwise equal too. Prints the step seconds through the
+           mesh beside the one-card step's (the first step, which sets up
+           NCCL, apart) and the peak memory of each
   train    the ADCC trainer (``ADCCTrainer.run``) at llama3-8b's full width
            with depth cut to 2 of 32 layers (1 where the disk cannot hold
            two slots), random weights from a seeded generator on the card,
@@ -226,7 +251,7 @@ from repro_torch.scenarios import batched_engine, driver  # noqa: E402
 
 PHASES = ("card", "build", "kernels", "sweep", "sharded", "kv", "device",
           "serve", "serve_moe", "serve_ssm", "serve_vlm_audio", "examples",
-          "mesh", "train")
+          "mesh", "mesh_train", "train")
 
 # tensor-core instructions counted in each kernel's SASS, and the kernels
 # that must have them: library -> (name in the kernel's symbol, kinds)
@@ -380,6 +405,19 @@ MESH_SEED = 20
 # float32, summation order only (the grouped windows' products against
 # the dense einsum over the same experts)
 MESH_EP_ATOL = 1e-5
+# the TP attention layer against one card's: two bf16 ulps (2 * 2^-7) of
+# the output's largest value. Each rank's share of the output is a bf16
+# product rounded once, as the whole layer's is; their float32 sum adds
+# at most the roundings of the four shares
+MESH_LAYER_RTOL = 2 * 2.0 ** -7
+
+# the mesh_train phase: (arch, depth cuts, sequence, crash and restart) of
+# the trainers held to the one-card trainer through a mesh of one rank
+MESH_TRAIN_RUNS = (("llama3-8b", (2, 1), 4096, True),
+                   ("deepseek-v2-lite-16b", (2, 1), 1024, False))
+# llama3-8b: 4 steps, slots after steps 1 and 3, the newer then torn;
+# deepseek: 3 steps and no slot
+MESH_TRAIN_STEPS = {True: 4, False: 3}
 
 # the train phase: the ADCC trainer at llama3-8b's full width with depth
 # cut to 2 of 32 layers (1 where the disk cannot hold two slots of 2),
@@ -2698,15 +2736,16 @@ def _median(xs) -> float:
     return float(statistics.median(xs)) if xs else float("nan")
 
 
-def _run_trainer(cfg, tcfg, workdir, mode, steps, seq, **kw) -> tuple:
+def _run_trainer(cfg, tcfg, workdir, mode, steps, seq, crash_at=None,
+                 **kw) -> tuple:
     """(trainer, result, peak device bytes) of one ``run(steps)``."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    tr = ADCCTrainer(cfg, tcfg, workdir, batch=TRAIN_BATCH, seq=seq,
-                     slot_every=TRAIN_SLOT_EVERY, n_slots=TRAIN_SLOTS,
-                     mode=mode, **kw)
-    res = tr.run(steps, log_every=0)
+    tr = ADCCTrainer(cfg, tcfg, workdir, **{
+        "batch": TRAIN_BATCH, "seq": seq, "slot_every": TRAIN_SLOT_EVERY,
+        "n_slots": TRAIN_SLOTS, "mode": mode, **kw})
+    res = tr.run(steps, crash_at_step=crash_at, log_every=0)
     torch.cuda.synchronize()
     if not all(np.isfinite(res.losses)):
         raise AssertionError(f"{mode}: non-finite losses {res.losses}")
@@ -2822,6 +2861,15 @@ class _ThreadExchange:
         return exchange
 
 
+def _rank_experts(p, r: int):
+    """The router and rank ``r``'s (E / MESH_EP, ...) expert stacks of
+    ``p``: what ``moe.local_experts`` hands that rank's body."""
+    from types import SimpleNamespace
+    return SimpleNamespace(router=p.router, **{
+        k: getattr(p, k).chunk(MESH_EP)[r]
+        for k in ("w_gate", "w_up", "w_down")})
+
+
 def _ep_bodies(p, cfg, x, capacity) -> tuple:
     """(the MESH_EP ranks' outputs concatenated, seconds): x (N, D) split
     over the ranks in order, each rank's body in its own thread."""
@@ -2831,8 +2879,8 @@ def _ep_bodies(p, cfg, x, capacity) -> tuple:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(MESH_EP) as pool:
-        futs = [pool.submit(moe_mod.ep_body, cfg, p, parts[r], r, MESH_EP,
-                            capacity, ex.for_rank(r))
+        futs = [pool.submit(moe_mod.ep_body, cfg, _rank_experts(p, r), parts[r],
+                            r, MESH_EP, capacity, ex.for_rank(r))
                 for r in range(MESH_EP)]
         outs = [f.result() for f in futs]
     torch.cuda.synchronize()
@@ -2873,6 +2921,7 @@ def _mesh_tp_attention() -> dict:
     if not torch.equal(torch.cat(parts, dim=2), whole):
         raise AssertionError("the TP bodies' heads differ from one whole "
                              "launch")
+    layer = _mesh_tp_layer(cfg, B, S)
     q0 = q[:, :, :H_loc]
     k0, v0 = k[:, :, :n_kv], v[:, :, :n_kv]
     qt, kt, vt = (t.transpose(1, 2) for t in (q0, k0, v0))
@@ -2889,7 +2938,64 @@ def _mesh_tp_attention() -> dict:
             "rank_library_ms": time_ms(lambda: sdpa(
                 qt, kt, vt, is_causal=True, enable_gqa=True), 10),
             **{f"rank_{k_}": v_ for k_, v_ in _flash_bound(
-                B, S, H_loc, n_kv, hd, True).items()}}
+                B, S, H_loc, n_kv, hd, True).items()},
+            "layer": layer}
+
+
+def _mesh_tp_layer(cfg, B: int, S: int) -> dict:
+    """llama3-8b's attention layer (seeded float32 weights, bf16 input of
+    B x S) through ``attention_body`` for each rank of tp = MESH_TP, in a
+    thread each: the rank's columns of wq and rows of wo, wk / wv whole.
+    Their outputs summed in float32 stand for the mesh's sum over
+    "model"; held to one card's layer within MESH_LAYER_RTOL of its
+    largest value, every B3 launch to its plain version."""
+    from concurrent.futures import ThreadPoolExecutor
+    from types import SimpleNamespace
+    dev = torch.device("cuda")
+    p = layers_mod.Attention(cfg, device=dev)
+    p.init_(torch.Generator(device=dev).manual_seed(MESH_SEED + 2))
+    x = torch.randn((B, S, cfg.d_model), device=dev, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=dev)
+                    .manual_seed(MESH_SEED + 3))
+    positions = torch.arange(S, device=dev)[None, :].expand(B, S)
+    ranks = [SimpleNamespace(wq=p.wq.chunk(MESH_TP, 1)[r], wk=p.wk, wv=p.wv,
+                             wo=p.wo.chunk(MESH_TP, 0)[r])
+             for r in range(MESH_TP)]
+
+    def body(r):
+        return layers_mod.attention_body(cfg, ranks[r], x, positions,
+                                         rank=r, tp=MESH_TP, flash=True)[0]
+
+    with torch.no_grad():
+        fa_kernel.launches = 0
+        whole, _ = layers_mod.attention_apply(cfg, p, x, positions,
+                                              flash=True)
+        whole_launches = fa_kernel.launches
+        fa_kernel.launches = 0
+        with _FlashChecked() as checked:
+            with ThreadPoolExecutor(MESH_TP) as pool:
+                outs = list(pool.map(body, range(MESH_TP)))
+        torch.cuda.synchronize()
+        launches = fa_kernel.launches
+        summed = sum(o.float() for o in outs).to(whole.dtype)
+        scale = float(whole.float().abs().max())
+        err = check_close("TP attention layer vs one card's", summed, whole,
+                          0.0, MESH_LAYER_RTOL * scale)
+        rank_ms = time_ms(lambda: body(0), 10)
+        whole_ms = time_ms(lambda: layers_mod.attention_apply(
+            cfg, p, x, positions, flash=True), 10)
+    if whole_launches != 1 or launches != MESH_TP:
+        raise AssertionError(f"B3 launched {whole_launches} times for the "
+                             f"whole layer, {launches} for its ranks")
+    nbytes = lambda ws: sum(w.numel() * w.element_size() for w in ws)
+    return {"shape": f"x ({B},{S},{cfg.d_model}) bf16, weights f32, "
+                     f"tp {MESH_TP}",
+            "launches": launches, "max_abs_err_vs_one_card": err,
+            "atol": MESH_LAYER_RTOL * scale,
+            "b3_max_abs_err_by_launch": checked.errs,
+            "rank_weight_bytes": [nbytes(vars(rp).values()) for rp in ranks],
+            "whole_weight_bytes": nbytes(p.parameters()),
+            "rank_body_ms": rank_ms, "whole_layer_ms": whole_ms}
 
 
 def _mesh_ep_layer() -> dict:
@@ -2922,6 +3028,7 @@ def _mesh_ep_layer() -> dict:
     return {"shape": f"x ({N},{cfg.d_model}) f32, {cfg.n_experts} experts, "
                      f"{cfg.n_experts // MESH_EP} a rank, K "
                      f"{cfg.experts_per_token}, ep {MESH_EP}",
+            "rank_expert_stacks": tuple(_rank_experts(p, 0).w_gate.shape),
             "max_abs_err_vs_dense": err, "atol": MESH_EP_ATOL,
             "capacity": cap, "capacity_factor": cfg.capacity_factor,
             "assignments": counts["assignments"],
@@ -3028,6 +3135,117 @@ def phase_mesh(records: list) -> None:
                     "flash_attention"]})
     emit({"phase": "mesh", "tp_attention": tp, "ep_layer": ep,
           "world_1": [moe_run, dense_run]})
+
+
+def _ledger_rows(tr) -> list:
+    """(step, loss, parameter / optimizer / update checksums) of every
+    record of ``tr``'s ledger."""
+    return [(r.step, r.loss, r.cks_params, r.cks_opt, r.cks_updates)
+            for r in tr.ledger.read_all()]
+
+
+def _step_line(res, peak) -> dict:
+    return {"first_step_s": res.step_seconds[0],
+            "median_step_s": _median(res.step_seconds[1:]),
+            "step_seconds": res.step_seconds, "peak_memory_gb": peak / 1e9}
+
+
+def _mesh_train_arch(root: str, arch: str, layers, seq: int, restart: bool,
+                     mesh) -> dict:
+    """The one-card trainer and the trainer through ``mesh`` (one NCCL
+    rank), bit for bit: every ledger record and the final parameters;
+    with ``restart`` the run through the mesh writes two slots, the newer
+    is torn (a crash in its write), and a restart through the mesh must
+    reject it, recover the older and replay to the same parameters."""
+    cfg = _train_cfg(arch, shutil.disk_usage(root).free, layers)
+    tcfg = TrainConfig(optimizer="adamw", remat="dots", seed=TRAIN_SEED)
+    steps = MESH_TRAIN_STEPS[restart]
+    no_slot = steps + 1
+    mm_kernel.launches = cv_kernel.launches = fa_kernel.launches = 0
+    one, res, peak = _run_trainer(cfg, tcfg, os.path.join(root, "one"),
+                                  "adcc", steps, seq, slot_every=no_slot)
+    want = _ledger_rows(one)
+    final = {n: p.detach().clone()
+             for n, p in one._final_params.named_parameters()}
+    line = {"arch": arch, "n_layers": cfg.n_layers, "batch": TRAIN_BATCH,
+            "seq": seq, "steps": steps, "one_card": _step_line(res, peak)}
+    del one
+    wd = os.path.join(root, "mesh")
+    tr, res, peak = _run_trainer(
+        cfg, tcfg, wd, "adcc", steps, seq, mesh=mesh,
+        slot_every=TRAIN_SLOT_EVERY if restart else no_slot)
+    line["mesh"] = {**_step_line(res, peak),
+                    "host_copy_s": tr.timings["host_copy"]}
+    if tr.info["mesh"] is not mesh or not tr.ranked:
+        raise AssertionError(f"{arch}: the trainer's step has mesh "
+                             f"{tr.info['mesh']}")
+    got = _ledger_rows(tr)
+    if got != want:
+        raise AssertionError(f"{arch}: the ledger through the mesh differs "
+                             f"from the one-card trainer's: {got} vs {want}")
+    if restart:
+        slots = tr.store.slots_by_recency()
+        if [s for _, s in slots] != [steps - 1, 1]:
+            raise AssertionError(f"{arch}: slots {slots}")
+        d = tr.store.slot_dir(slots[0][0])
+        leaf = sorted(f for f in os.listdir(d) if f.endswith(".npy"))[0]
+        np.save(os.path.join(d, leaf),
+                np.load(os.path.join(d, leaf)) + 1000.0)
+        del tr
+        tr, res, peak = _run_trainer(cfg, tcfg, wd, "none", steps, seq,
+                                     mesh=mesh)
+        checks = tr.recovery_checks
+        if res.resumed_from != 1 or [c[1] for c in checks] != [steps - 1, 1] \
+                or checks[0][2] == 0 or checks[1][2] != 0:
+            raise AssertionError(f"{arch}: recovery through the mesh: "
+                                 f"resumed_from {res.resumed_from}, checks "
+                                 f"{checks}")
+        if res.losses != [r[1] for r in want[2:]]:
+            raise AssertionError(f"{arch}: replayed losses {res.losses}")
+        line.update({"restart": _step_line(res, peak),
+                     "recovery_checks": [list(c) for c in checks],
+                     "recover_read_s": tr.timings["recover_read"],
+                     "recover_verify_s": tr.timings["recover_verify"]})
+    diff = [n for n, p in tr._final_params.named_parameters()
+            if not torch.equal(p.to_local(), final[n])]
+    if diff:
+        raise AssertionError(f"{arch}: final parameters through the mesh "
+                             f"differ from the one card's in {diff}")
+    launches = _launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"{arch}: training launched {launches}")
+    line.update({"ledger_records_bitwise_equal": len(want),
+                 "final_params_bitwise_equal": True, "launches": launches})
+    return line
+
+
+def phase_mesh_train() -> None:
+    """Training across ranks at world size 1 through NCCL, held bit for bit
+    to the one-card trainer."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_train_")
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+        rank=0, world_size=1)
+    runs = []
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for arch, layers, seq, restart in MESH_TRAIN_RUNS:
+            root = tempfile.mkdtemp(prefix="chip_smoke_mesh_train_")
+            try:
+                runs.append(_mesh_train_arch(root, arch, layers, seq,
+                                             restart, mesh))
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    emit({"phase": "mesh_train", "runs": runs})
 
 
 def phase_train() -> None:
@@ -3247,6 +3465,8 @@ def main() -> None:
         phase_examples(records)
     if "mesh" in want:
         phase_mesh(records)
+    if "mesh_train" in want:
+        phase_mesh_train()
     if "train" in want:
         phase_train()
     if want != list(PHASES):

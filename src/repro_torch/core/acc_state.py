@@ -40,6 +40,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.carry import opt_tree, reference_tree, tree_items
 
@@ -142,10 +143,12 @@ class ChecksumLedger:
 
 def leaf_checksum(leaf) -> torch.Tensor:
     """f32 sum of a tensor, or the sum of the per-layer sums of a stacked
-    leaf's list."""
+    leaf's list. A DTensor's is its global sum, on every rank (the
+    shards' sums added over the ranks that split it)."""
     if isinstance(leaf, list):
         return torch.stack([leaf_checksum(x) for x in leaf]).sum()
-    return torch.sum(leaf.to(torch.float32))
+    total = torch.sum(leaf.to(torch.float32))
+    return total.full_tensor() if isinstance(total, DTensor) else total
 
 
 def verify_state_against_record(lm, opt_state, rec: LedgerRecord,

@@ -42,21 +42,31 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..models.carry import (nest, opt_from_reference, opt_tree,
-                            params_from_reference, reference_tree,
+from ..models.carry import (global_tensor, nest, opt_from_reference,
+                            opt_tree, params_from_reference, reference_tree,
                             to_host, tree_items)
 
 __all__ = ["SlotStore", "AsyncSlotWriter", "flatten_state", "unflatten_state"]
 
 
-def flatten_state(state) -> Dict[str, np.ndarray]:
+def flatten_state(state, keep: bool = True
+                  ) -> Optional[Dict[str, np.ndarray]]:
     """{"params": LM, "opt": optimizer state} -> {path: ndarray} with the
-    reference's '/'-joined keys and stacked layers."""
+    reference's '/'-joined keys and stacked layers. DTensor leaves (state
+    across the ranks of a DeviceMesh) become their global arrays, as the
+    reference stores them: every rank must call this on its main thread,
+    leaf for leaf in the same order, for the gathers to pair up; with
+    ``keep`` False it runs the gathers and keeps nothing (None)."""
     lm = state["params"]
     cfg = lm.cfg
     tree = {"params": reference_tree(cfg, dict(lm.named_parameters())),
             "opt": opt_tree(cfg, state["opt"])}
-    return {path: to_host(leaf) for path, leaf in tree_items(tree)}
+    if keep:
+        return {path: to_host(leaf) for path, leaf in tree_items(tree)}
+    for _, leaf in tree_items(tree):
+        for t in (leaf if isinstance(leaf, list) else [leaf]):
+            global_tensor(t.detach())
+    return None
 
 
 def unflatten_state(template, flat: Dict[str, np.ndarray], device=None):
@@ -151,6 +161,7 @@ class AsyncSlotWriter:
         self._crashed = threading.Event()
         self._idle = threading.Event()
         self._idle.set()
+        self._busy = threading.Lock()
         self._write_idx = 0
         self.write_seconds: List[float] = []   # per completed slot
         self._thread = threading.Thread(target=self._run, daemon=True)
@@ -165,34 +176,42 @@ class AsyncSlotWriter:
     def _run(self) -> None:
         while True:
             slot, step, flat = self._q.get()
-            if self._crashed.is_set():
-                continue
-            t0 = time.perf_counter()
-            d = self.store.slot_dir(slot)
-            os.makedirs(d, exist_ok=True)
-            with open(os.path.join(d, "meta.json"), "w") as fh:
-                json.dump({"step": step, "complete": False}, fh)
-            for i, (key, arr) in enumerate(sorted(flat.items())):
-                if self._crashed.is_set():
-                    break  # power loss mid-write: slot is torn
-                np.save(os.path.join(d, key.replace("/", "__") + ".npy"), arr)
-            else:
+            with self._busy:
                 if not self._crashed.is_set():
-                    with open(os.path.join(d, "meta.json"), "w") as fh:
-                        json.dump({"step": step, "complete": True}, fh)
-                    self.write_seconds.append(time.perf_counter() - t0)
+                    self._write(slot, step, flat)
             del flat    # the host copy is not held while the queue waits
             if self._q.empty():
                 self._idle.set()
+
+    def _write(self, slot: int, step: int, flat) -> None:
+        t0 = time.perf_counter()
+        d = self.store.slot_dir(slot)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "meta.json"), "w") as fh:
+            json.dump({"step": step, "complete": False}, fh)
+        for key, arr in sorted(flat.items()):
+            if self._crashed.is_set():
+                return  # power loss mid-write: slot is torn
+            np.save(os.path.join(d, key.replace("/", "__") + ".npy"), arr)
+        if self._crashed.is_set():
+            return
+        with open(os.path.join(d, "meta.json"), "w") as fh:
+            json.dump({"step": step, "complete": True}, fh)
+        self.write_seconds.append(time.perf_counter() - t0)
 
     def drain(self, timeout: float = 60.0) -> None:
         self._idle.wait(timeout)
 
     def crash(self) -> None:
-        """Simulated power loss: abandon queued + in-flight writes."""
+        """Simulated power loss: abandon queued + in-flight writes. Returns
+        once the thread has stopped at a leaf boundary, so the files on
+        disk no longer change (ranks that read them next read the
+        same)."""
         self._crashed.set()
         try:
             while True:
                 self._q.get_nowait()
         except queue.Empty:
+            pass
+        with self._busy:
             pass

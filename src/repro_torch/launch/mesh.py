@@ -15,22 +15,21 @@ objects. The port has two kinds:
   calls ``torch.distributed.init_process_group`` with its rank, the world
   size and an address of its own choosing before it builds the mesh.
 
-Serving (``forward``, ``decode_step``, ``build_serve_step``) runs across
-the ranks of such a mesh. Training across ranks (``build_train_step``,
-``ADCCTrainer``) comes with ROADMAP A10b.7b: :func:`one_card` raises for
-any mesh but one card there.
+Serving (``forward``, ``decode_step``, ``build_serve_step``) and training
+(``build_train_step``, ``ADCCTrainer``) run across the ranks of such a
+mesh; :func:`check_mesh` admits it, ``None`` or a mesh of one card.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
 __all__ = ["Mesh", "make_mesh", "make_production_mesh", "single_device_mesh",
-           "one_card", "is_ranked", "mesh_shape", "check_mesh"]
+           "is_ranked", "mesh_shape", "check_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,13 +114,3 @@ def check_mesh(mesh):
         return mesh
     raise TypeError(f"{mesh!r} is not a mesh: pass None, "
                     f"single_device_mesh() or make_mesh(shape, axes)")
-
-
-def one_card(mesh) -> Optional[Mesh]:
-    """``mesh`` if it is ``None`` or a mesh of one card; raises for any
-    other, naming the slice that trains across ranks."""
-    if mesh is None or (isinstance(mesh, Mesh) and mesh.size == 1):
-        return mesh
-    raise NotImplementedError(
-        f"mesh {mesh!r}: the port trains on one card; training across "
-        f"ranks comes with ROADMAP A10b.7b")

@@ -36,12 +36,17 @@ bitwise equal to an uninterrupted run. The setting is restored after
 the step; torch's filling of uninitialised memory is kept off, since
 the step reads none.
 
-``rules`` is ``None`` or a mesh of one card (``launch.mesh``), which the
-step hands to ``loss_fn`` as the reference's hands it its mesh: the moe
-family's layers then take the expert-parallel path. Training across the
-ranks of a ``DeviceMesh`` comes with ROADMAP A10b.7b and raises.
-:func:`build_opt_shardings` gives the optimizer state's placements on
-any mesh; :func:`build_serve_step` serves across ranks.
+``rules`` is ``None``, a mesh (``launch.mesh``: one card, or a
+``DeviceMesh``) or the ``PartitionRules`` of one, and the step hands the
+mesh to ``loss_fn`` as the reference's hands it its mesh: the moe
+family's layers then take the expert-parallel path. Across the ranks of
+a ``DeviceMesh`` (:func:`place_model` places the parameters by the
+partition rules) the compute copy and the gradients are DTensors placed
+as the parameters, the loss is the global mean, each gradient comes back
+summed over the data axes (``layers.tp_weights``), the optimizer state
+is placed as :func:`build_opt_shardings` says and updated shard by
+shard, and ``grad_norm`` and the checksums are global sums.
+:func:`build_serve_step` serves across ranks.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from typing import Dict, Iterator
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 
 from ..configs.base import TrainConfig
 from ..core.acc_state import leaf_checksum
@@ -62,11 +68,12 @@ from ..models.carry import param_axes
 from ..optim import (AdafactorState, AdamWState, compress_decompress,
                      make_optimizer)
 from ..sharding.partition import (PartitionRules, cache_shardings, make_rules,
-                                  params_shardings, placements)
-from .mesh import check_mesh, one_card
+                                  params_shardings, place, placements)
+from .mesh import check_mesh, is_ranked
 
 __all__ = ["build_train_step", "build_serve_step", "tree_checksums",
-           "build_opt_shardings"]
+           "build_opt_shardings", "place_model", "place_opt_state",
+           "train_rules"]
 
 
 def tree_checksums(tree):
@@ -128,8 +135,8 @@ def _compute_copy(lm: nn.Module) -> nn.Module:
     """A model of ``lm``'s class beside it whose float32 parameters are in
     the compute type where the reference's ``to_compute`` casts their
     leaf (per-layer parameters, and others of two or more dimensions),
-    every parameter a leaf that requires grad. Values are filled by the
-    step."""
+    every parameter a leaf that requires grad, placed as ``lm``'s (a
+    DTensor as a DTensor). Values are filled by the step."""
     cfg = lm.cfg
     cdt = L.dtype_of(cfg.compute_dtype)
     out = type(lm)(cfg, device="meta")
@@ -138,9 +145,83 @@ def _compute_copy(lm: nn.Module) -> nn.Module:
                                              or p.ndim >= 2)
         mod, _, attr = name.rpartition(".")
         setattr(out.get_submodule(mod) if mod else out, attr,
-                nn.Parameter(torch.empty(p.shape, dtype=cdt if cast
-                                         else p.dtype, device=p.device)))
+                nn.Parameter(torch.empty_like(
+                    p, dtype=cdt if cast else p.dtype).detach()))
     return out
+
+
+def place_model(lm: nn.Module, rules: PartitionRules) -> nn.Module:
+    """``lm``'s parameters, global tensors that every rank holds, replaced
+    in place by DTensors on ``rules.mesh`` placed by the partition rules
+    (``sharding.partition.place``: each rank keeps its shard). Returns
+    ``lm``."""
+    for name, w in list(lm.named_parameters()):
+        mod, _, attr = name.rpartition(".")
+        owner = lm.get_submodule(mod) if mod else lm
+        where = placements(rules.mesh, rules.spec(type(owner).AXES[attr]))
+        setattr(owner, attr, nn.Parameter(
+            place(w.detach(), rules.mesh, where),
+            requires_grad=w.requires_grad))
+    return lm
+
+
+def train_rules(tcfg: TrainConfig, rules):
+    """(mesh, rules) of a train step's ``rules`` argument: ``None``, a mesh
+    or ``PartitionRules``. A ``DeviceMesh`` gets the reference trainer's
+    ``make_rules(mesh, fsdp=tcfg.fsdp)``; without one the rules are
+    None (nothing is placed)."""
+    if isinstance(rules, PartitionRules):
+        mesh = check_mesh(rules.mesh)
+        return mesh, (rules if is_ranked(mesh) else None)
+    mesh = check_mesh(rules)
+    return mesh, (make_rules(mesh, fsdp=tcfg.fsdp) if is_ranked(mesh)
+                  else None)
+
+
+def place_opt_state(tcfg: TrainConfig, rules: PartitionRules, state,
+                    lm: nn.Module):
+    """Optimizer state of global tensors that every rank holds placed on
+    ``rules.mesh`` as :func:`build_opt_shardings` says (the step stays
+    replicated): AdamW's moments as their parameters in ``lm``, Adafactor's
+    statistics by their stacked leaf's axes."""
+    mesh = rules.mesh
+    if isinstance(state, AdamWState):
+        where = {n: p.placements for n, p in lm.named_parameters()}
+        return AdamWState(
+            step=state.step,
+            m={n: place(t, mesh, where[n]) for n, t in state.m.items()},
+            v={n: place(t, mesh, where[n]) for n, t in state.v.items()})
+    sh = dict(tree_items(build_opt_shardings(
+        tcfg, rules, None, param_axes(lm.cfg)).stats))
+    return AdafactorState(step=state.step, stats={
+        path: {k: place(t, mesh, sh[f"{path}/{k}"]) for k, t in st.items()}
+        for path, st in state.stats.items()})
+
+
+def _stack(parts):
+    """A stacked leaf's layers as one tensor; DTensors stack shard by
+    shard, the leading layers dim replicated."""
+    first = parts[0]
+    if not isinstance(first, DTensor):
+        return torch.stack(parts)
+    shape = (len(parts),) + tuple(first.shape)
+    return DTensor.from_local(
+        torch.stack([p.to_local() for p in parts]), first.device_mesh,
+        tuple(Shard(q.dim + 1) if isinstance(q, Shard) else q
+              for q in first.placements), run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def _unstack(t):
+    if not isinstance(t, DTensor):
+        return t.unbind(0)
+    where = tuple(Shard(q.dim - 1) if isinstance(q, Shard) else q
+                  for q in t.placements)
+    shape = tuple(t.shape[1:])
+    stride = torch.empty(shape, device="meta").stride()
+    return [DTensor.from_local(x, t.device_mesh, where, run_check=False,
+                               shape=shape, stride=stride)
+            for x in t.to_local().unbind(0)]
 
 
 def _clone(tree):
@@ -165,14 +246,15 @@ def build_train_step(api: ModelApi, tcfg: TrainConfig, rules=None, *,
     tensors on the LM's device.
     ``generator`` draws the int8 compression's rounding noise (unused
     without compression). ``opt_init(lm)`` makes the optimizer state.
-    ``info`` holds ``remat``, ``optimizer`` and
+    ``info`` holds ``remat``, ``optimizer``, ``mesh``, ``rules`` and
     ``value_and_grad(lm, batch) -> (loss, grads)``, the step's own
-    gradient path.
-    ``rules``: ``None`` or a mesh of one card, passed to ``loss_fn``;
-    ``info["mesh"]`` holds it.
+    gradient path (across ranks every gradient is the global one).
+    ``rules``: ``None``, a mesh or ``PartitionRules`` (see the module's
+    note); across the ranks of a DeviceMesh ``lm`` is placed by
+    :func:`place_model` and every rank passes the whole batch.
     ``batch_template`` pins input shardings in the reference and is
     accepted for its interface only."""
-    mesh = one_card(rules)
+    mesh, rules = train_rules(tcfg, rules)
     cfg = api.cfg
     init_fn, opt_update = make_optimizer(tcfg)
     use_compression = tcfg.grad_compression == "int8"
@@ -186,7 +268,7 @@ def build_train_step(api: ModelApi, tcfg: TrainConfig, rules=None, *,
     def opt_view(by_name: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if not stacked:
             return by_name
-        return {path: (torch.stack([by_name[n] for n in names])
+        return {path: (_stack([by_name[n] for n in names])
                        if path.startswith("layers/") else by_name[names[0]])
                 for path, names in paths}
 
@@ -196,7 +278,7 @@ def build_train_step(api: ModelApi, tcfg: TrainConfig, rules=None, *,
         out = {}
         for path, names in paths:
             if path.startswith("layers/"):
-                out.update(zip(names, upd[path].unbind(0)))
+                out.update(zip(names, _unstack(upd[path])))
             else:
                 out[names[0]] = upd[path]
         return out
@@ -253,7 +335,7 @@ def build_train_step(api: ModelApi, tcfg: TrainConfig, rules=None, *,
         return lm, opt_state, err_state, metrics, checksums
 
     info = {"remat": tcfg.remat, "optimizer": tcfg.optimizer, "mesh": mesh,
-            "value_and_grad": value_and_grad}
+            "rules": rules, "value_and_grad": value_and_grad}
     return train_step, info, opt_init
 
 

@@ -22,6 +22,16 @@ The trainer runs on :func:`repro_torch.get_device` (the card; the CPU
 only inside ``use_device("cpu")``) and records where its time goes in
 ``timings``: seconds of each ledger append, each host copy of the state,
 each synchronous slot write, and the recovery's reads and checks.
+
+Across the ranks of a ``DeviceMesh`` (``mesh=``, from Python in every
+spawned rank, as the reference's trainer takes its mesh) every rank runs
+the same loop on the same batches. The parameters and the optimizer
+state are placed by the partition rules (``launch.steps``); the host
+copy of a slot gathers the global arrays on every rank's main thread
+(``core.slots.flatten_state``), and rank 0 alone appends the ledger and
+writes the slots. Every rank reads the same ledger and slot files at
+recovery, verifies them the same way, takes the same decision (checked
+across the ranks), and places the recovered global arrays on the mesh.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ModelConfig, TrainConfig
 from ..core.acc_state import (ChecksumLedger, LedgerRecord, flatten_checksums,
@@ -45,8 +56,9 @@ from ..data.pipeline import SyntheticPipeline
 from ..device import get_device
 from ..models.registry import build_model, get_config
 from ..optim import init_error_state
-from .mesh import one_card, single_device_mesh
-from .steps import build_train_step
+from .mesh import is_ranked, single_device_mesh
+from .steps import (build_train_step, place_model, place_opt_state,
+                    train_rules)
 
 __all__ = ["ADCCTrainer", "StragglerMonitor", "TrainerResult", "main",
            "CUBLAS_WORKSPACE"]
@@ -102,15 +114,20 @@ class ADCCTrainer:
         """mode: 'adcc' (paper technique) | 'sync' (traditional blocking
         checkpoint baseline) | 'none' (no fault tolerance).
         ``mesh``: ``None`` (a mesh of one card is built, as the reference
-        builds its one-device mesh) or a mesh of one card; training
-        across ranks raises (ROADMAP A10b.7b).
+        builds its one-device mesh), a mesh of one card, or a
+        ``DeviceMesh`` to train across its ranks (every rank builds the
+        trainer with the same arguments).
         ``deterministic``: run each step with deterministic algorithms
         (needed for bitwise recovery on the card; launch/steps.py)."""
         if mode not in ("adcc", "sync", "none"):
             raise ValueError(f"mode {mode!r}: adcc, sync or none")
         # the reference's trainer builds a one-device mesh when given none,
         # and its step runs the model on it (MoE: the expert-parallel path)
-        self.mesh = one_card(mesh) or single_device_mesh()
+        mesh, self.rules = train_rules(tcfg, mesh)
+        self.mesh = single_device_mesh() if mesh is None else mesh
+        self.ranked = is_ranked(self.mesh)
+        # rank 0 appends the ledger and writes the slots
+        self.writes = not self.ranked or dist.get_rank() == 0
         self.cfg, self.tcfg = cfg, tcfg
         self.workdir = workdir
         self.batch, self.seq = batch, seq
@@ -121,11 +138,12 @@ class ADCCTrainer:
         self.api = build_model(cfg)
         self.pipeline = SyntheticPipeline(cfg, batch, seq, seed=tcfg.seed)
         self.step_fn, self.info, self.opt_init = build_train_step(
-            self.api, tcfg, self.mesh, donate=True,
+            self.api, tcfg, self.rules or self.mesh, donate=True,
             deterministic=deterministic)
         self.ledger = ChecksumLedger(os.path.join(workdir, "ledger.jsonl"))
         self.store = SlotStore(os.path.join(workdir, "slots"), n_slots)
-        self.writer = AsyncSlotWriter(self.store) if mode == "adcc" else None
+        self.writer = (AsyncSlotWriter(self.store)
+                       if mode == "adcc" and self.writes else None)
         self.monitor = StragglerMonitor()
         self.timings: Dict[str, List[float]] = {
             "ledger_append": [], "host_copy": [], "slot_write": [],
@@ -137,6 +155,19 @@ class ADCCTrainer:
     # -- recovery ---------------------------------------------------------------
     def _try_recover(self):
         """-> (params, opt_state, resume_step, report) or Nones."""
+        params, opt, start, report = self._scan_slots()
+        if self.ranked:
+            seen = [None] * dist.get_world_size()
+            dist.all_gather_object(seen, start)
+            if len(set(seen)) != 1:
+                raise RuntimeError(f"ranks recover at different steps "
+                                   f"{seen}: their files differ")
+            if params is not None:
+                params = place_model(params, self.rules)
+                opt = place_opt_state(self.tcfg, self.rules, opt, params)
+        return params, opt, start, report
+
+    def _scan_slots(self):
         recs = {r.step: r for r in self.ledger.validated_records()}
         if not recs:
             return None, None, 0, "no ledger"
@@ -179,7 +210,8 @@ class ADCCTrainer:
 
     def _host_state(self, params, opt_state):
         t0 = time.perf_counter()
-        flat = flatten_state({"params": params, "opt": opt_state})
+        flat = flatten_state({"params": params, "opt": opt_state},
+                             keep=self.writes)
         self.timings["host_copy"].append(time.perf_counter() - t0)
         return flat
 
@@ -191,6 +223,8 @@ class ADCCTrainer:
         if params is None:
             params = self.api.init(torch.Generator(device=self.device)
                                    .manual_seed(self.tcfg.seed))
+            if self.ranked:
+                params = place_model(params, self.rules)
             opt_state = self.opt_init(params)
         err_state = (init_error_state(dict(params.named_parameters()))
                      if self.tcfg.grad_compression == "int8" else {})
@@ -210,21 +244,26 @@ class ADCCTrainer:
             slot_step = (t + 1) % self.slot_every == 0
 
             # (3) synchronous tiny ledger write — the "one cache line"
-            if self.mode == "adcc" or (self.mode == "sync" and slot_step):
+            if self.writes and (self.mode == "adcc"
+                                or (self.mode == "sync" and slot_step)):
                 rec = self._record(t, loss, cks)
                 ta = time.perf_counter()
                 self.ledger.append(rec)
                 self.timings["ledger_append"].append(time.perf_counter() - ta)
             if self.mode == "adcc" and slot_step:
                 # (4) async fence-free heavy-state write
-                self.writer.submit(t, self._host_state(params, opt_state))
+                flat = self._host_state(params, opt_state)
+                if self.writes:
+                    self.writer.submit(t, flat)
+                del flat
             elif self.mode == "sync" and slot_step:
                 # traditional checkpoint: blocking full copy + ledger
                 flat = self._host_state(params, opt_state)
                 tw = time.perf_counter()
-                self.store.write_slot(
-                    self.store.slot_for_step((t + 1) // self.slot_every),
-                    t, flat)
+                if self.writes:
+                    self.store.write_slot(
+                        self.store.slot_for_step((t + 1) // self.slot_every),
+                        t, flat)
                 del flat
                 self.timings["slot_write"].append(time.perf_counter() - tw)
 
@@ -243,6 +282,7 @@ class ADCCTrainer:
         if self.writer is not None:
             self.writer.drain()
         self.ledger.close()
+        self._barrier()
         self._final_params = params  # for tests
         self._final_opt = opt_state
         return TrainerResult(steps - 1, losses, resumed_from, report, times)
@@ -254,6 +294,12 @@ class ADCCTrainer:
             self.writer.crash()
         self.ledger.close()
         self._crashed = True
+        self._barrier()
+
+    def _barrier(self) -> None:
+        """Across ranks, wait until rank 0's files are final."""
+        if self.ranked:
+            dist.barrier()
 
 
 def main(argv=None) -> None:

@@ -51,6 +51,7 @@ from typing import Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..configs.base import ModelConfig
 from ..device import get_device
@@ -60,7 +61,7 @@ from .registry import family_module, model_class
 __all__ = ["params_from_reference", "cache_from_reference",
            "params_to_reference", "opt_to_reference", "opt_from_reference",
            "opt_tree", "reference_paths", "reference_tree", "nest", "tree_items",
-           "to_host", "param_axes"]
+           "to_host", "global_tensor", "param_axes"]
 
 @functools.lru_cache(maxsize=None)
 def _leaves(cfg: ModelConfig) -> Tuple[Dict[str, str], Dict[str, str]]:
@@ -150,9 +151,24 @@ def tree_items(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
 _NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32}
 
 
+def global_tensor(t: torch.Tensor) -> torch.Tensor:
+    """The whole of a DTensor on every rank (an all-gather, a collective
+    that every rank runs, on its main thread and in the same order); a
+    plain tensor, or a DTensor split only over axes of one rank, as its
+    local tensor."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    if all(mesh.size(i) == 1 for i, p in enumerate(t.placements)
+           if not isinstance(p, Replicate)):
+        return t.to_local()
+    return t.full_tensor()
+
+
 def to_host(leaf) -> np.ndarray:
     """A tensor, or the list of one stacked leaf's layers, as one numpy
-    array, each tensor copied once from its device into the array."""
+    array, each tensor copied once from its device into the array; a
+    DTensor as its global array (:func:`global_tensor`)."""
     parts = leaf if isinstance(leaf, list) else [leaf]
     first = parts[0]
     if first.dtype not in _NP_DTYPES:
@@ -162,7 +178,7 @@ def to_host(leaf) -> np.ndarray:
                    else shape, dtype=_NP_DTYPES[first.dtype])
     dst = [out] if not isinstance(leaf, list) else list(out)
     for d, t in zip(dst, parts):
-        torch.from_numpy(d).copy_(t.detach())
+        torch.from_numpy(d).copy_(global_tensor(t.detach()))
     return out
 
 

@@ -16,6 +16,11 @@ lies on this path.
 The decode cache is ``{"attn": {"k", "v"} (n_segments, B, max_len, KV,
 hd), "ssm": {"state", "conv"} (n_layers, ...)}``; ``decode_step`` writes
 it in place and returns it.
+
+Across the ranks of a DeviceMesh each rank runs its block of the batch
+rows; the shared block's attention and SwiGLU, the Mamba2 layers'
+``out_proj``, the embedding and the head are tensor parallel over
+"model" (``lm.py``'s note), and :func:`loss_fn` is the global mean.
 """
 
 from __future__ import annotations
@@ -95,12 +100,12 @@ def abstract_init(cfg: ModelConfig) -> HybridLM:
 
 def _shared_block_apply(cfg: ModelConfig, sp: SharedBlock, h: torch.Tensor,
                         positions: torch.Tensor, cache=None,
-                        cache_index=None):
+                        cache_index=None, mesh=None):
     attn_out, new_cache = L.attention_apply(
         cfg, sp.attn, sp.norm_attn(h), positions, cache=cache,
-        cache_index=cache_index)
+        cache_index=cache_index, mesh=mesh)
     h = h + attn_out
-    h = h + L.swiglu_apply(sp.ffn, sp.norm_ffn(h))
+    h = h + L.swiglu_apply(sp.ffn, sp.norm_ffn(h), mesh)
     return h, new_cache
 
 
@@ -109,12 +114,14 @@ def forward_train(cfg: ModelConfig, lm: HybridLM, batch: Dict, mesh=None,
     """Logits (B, S, vocab) in the compute type, recording gradients for
     whichever weights require them. ``remat`` applies to the Mamba2
     layers only, as in the reference (the shared block is not
-    rematerialised there)."""
+    rematerialised there). Across the ranks of a DeviceMesh the whole
+    logits on every rank."""
     LMmod.check_remat(remat)
     tokens = batch["tokens"]
     B, S = tokens.shape
     if L.ranked(mesh):
-        return _forward_ranked(cfg, lm, tokens, mesh)
+        logits, _ = forward_rows(cfg, lm, batch, mesh, remat)
+        return L.gather_rows(logits, mesh, B)
     h = lm.embed[tokens].to(L.dtype_of(cfg.compute_dtype))
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     for start, length in segments(cfg):
@@ -125,24 +132,24 @@ def forward_train(cfg: ModelConfig, lm: HybridLM, batch: Dict, mesh=None,
     return LMmod._head(cfg, lm, lm.norm_f(h))
 
 
-def _forward_ranked(cfg: ModelConfig, lm: HybridLM, tokens: torch.Tensor,
-                    mesh) -> torch.Tensor:
-    """The forward across the ranks of a DeviceMesh: each rank runs the
-    shared block and the Mamba2 layers on its batch rows."""
-    units = []
-    for start, length in segments(cfg):
-        units += [lm.shared] + list(lm.layers[start:start + length])
-
-    def step(unit, h):
-        if unit is not lm.shared:
-            return SSM.mamba_layer(cfg, unit, h)
+def forward_rows(cfg: ModelConfig, lm: HybridLM, batch: Dict, mesh,
+                 remat: str = "none"):
+    """Across the ranks of a DeviceMesh: (this rank's rows' logits, those
+    rows of the batch)."""
+    tokens = batch["tokens"]
+    rows = L.batch_rows(tokens.shape[0], mesh)
+    with L.tp_weights(lm, mesh, skip=("layers",)):
+        h = LMmod.embed_tokens(cfg, lm.embed, tokens[rows], mesh)
         B, S = h.shape[:2]
         positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
-        return _shared_block_apply(cfg, lm.shared, h, positions)[0]
-
-    return L.rows_across_ranks(
-        lm, mesh, lambda: lm.embed[tokens].to(L.dtype_of(cfg.compute_dtype)),
-        units, step, lambda h: LMmod._head(cfg, lm, lm.norm_f(h)))
+        for start, length in segments(cfg):
+            h, _ = _shared_block_apply(cfg, lm.shared, h, positions,
+                                       mesh=mesh)
+            for lp in lm.layers[start:start + length]:
+                h = LMmod.remat_apply(L.tp_body(
+                    lp, mesh, lambda lp, h: SSM.mamba_layer(cfg, lp, h,
+                                                            mesh)), h, remat)
+        return LMmod._head(cfg, lm, lm.norm_f(h), mesh), rows
 
 
 @torch.no_grad()
@@ -156,9 +163,11 @@ def forward(cfg: ModelConfig, lm: HybridLM, batch: Dict, mesh=None,
 
 def loss_fn(cfg: ModelConfig, lm: HybridLM, batch: Dict, mesh=None,
             remat: str = "none") -> torch.Tensor:
-    """Mean next-token cross entropy of ``batch`` (tokens, labels); raises
-    across the ranks of a DeviceMesh (ROADMAP A10b.7b)."""
-    L.no_ranks(mesh)
+    """Mean next-token cross entropy of ``batch`` (tokens, labels); across
+    the ranks of a DeviceMesh the global mean over every rank's rows."""
+    if L.ranked(mesh):
+        logits, rows = forward_rows(cfg, lm, batch, mesh, remat)
+        return LMmod.ranked_loss(logits, rows, batch, mesh)
     return LMmod.cross_entropy(forward_train(cfg, lm, batch, mesh, remat),
                                batch["labels"])
 
@@ -189,24 +198,21 @@ def decode_step(cfg: ModelConfig, lm: HybridLM, cache: Dict, tokens:
     vocab), cache). Across the ranks of a DeviceMesh each rank steps its
     batch rows, writes their caches, and returns the whole logits."""
     pos = int(pos)
-    ranked = L.ranked(mesh)
-    with L.gathered_weights(lm, mesh if ranked else None):
-        h = lm.embed[tokens].to(L.dtype_of(cfg.compute_dtype))
-        rows = slice(None)
-        if ranked:
-            ref = L.residual(h, mesh)
-            rows = L.local_rows(ref)
-            h = ref.to_local()
+    B = tokens.shape[0]
+    rows = L.batch_rows(B, mesh)
+    with L.tp_weights(lm, mesh, skip=("layers",)):
+        h = LMmod.embed_tokens(cfg, lm.embed, tokens[rows], mesh)
         ssm = {k: c[:, rows] for k, c in cache["ssm"].items()}
         positions = torch.full((h.shape[0], 1), pos, dtype=torch.int32,
                                device=h.device)
         for si, (start, length) in enumerate(segments(cfg)):
             site = {name: c[si][rows] for name, c in cache["attn"].items()}
             h, _ = _shared_block_apply(cfg, lm.shared, h, positions,
-                                       cache=site, cache_index=pos)
+                                       cache=site, cache_index=pos,
+                                       mesh=mesh)
             h = SSM.decode_layers(cfg, lm.layers[start:start + length],
-                                  ssm, h, first=start)
-        logits = LMmod._head(cfg, lm, lm.norm_f(h))
-    if ranked:
-        logits = L.rows_like(logits, ref).full_tensor()
+                                  ssm, h, first=start, mesh=mesh)
+        logits = LMmod._head(cfg, lm, lm.norm_f(h), mesh)
+    if L.ranked(mesh):
+        logits = L.gather_rows(logits, mesh, B)
     return logits, cache

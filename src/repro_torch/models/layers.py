@@ -14,13 +14,17 @@ Conventions, as in the JAX package's ``models/layers.py``:
   positions), and by RoPE otherwise.
 * Sharding follows the reference's. ``mesh`` is ``None``, a mesh of one
   card (``launch.mesh.single_device_mesh``) or a ``DeviceMesh``
-  (``launch.mesh.make_mesh``). Across the ranks of a ``DeviceMesh`` the
-  residual stream is a DTensor whose batch rows are split over the data
-  axes; :func:`shard_act` pins it there at every layer boundary and
-  :func:`gathered_weights` gathers a layer's DTensor weights
-  (:func:`gather_weights`) while the layer runs on the rank's rows.
-  :func:`flash_sdpa` splits the query heads over the "model" axis, each
-  rank launching the flash kernel on its heads (:func:`flash_tp_body`).
+  (``launch.mesh.make_mesh``). Across the ranks of a ``DeviceMesh`` each
+  rank runs its block of the batch rows (:func:`batch_rows`, split over
+  the data axes) through every layer, and a layer is tensor parallel
+  over the "model" axis, Megatron's way: under :func:`tp_weights` each
+  weight is the rank's part of it (``sharding.partition.tp_local``: a
+  DTensor weight gathered over the data axes, the reference's
+  ``gather_weights``, and never read whole), the input of the split
+  products passes :func:`tp_enter` and the row-parallel output
+  :func:`tp_reduce`. Attention splits by query heads (the flash branch
+  launches the kernel on the rank's heads, :func:`flash_tp_body`), the
+  SwiGLU by its hidden columns.
 """
 
 from __future__ import annotations
@@ -37,10 +41,12 @@ from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
 
 __all__ = ["RMSNorm", "rmsnorm", "rope_freqs", "apply_rope", "apply_mrope",
-           "ranked", "no_ranks", "shard_act", "gather_weights",
-           "gathered_weights", "rows_across_ranks", "residual",
-           "local_rows", "rows_like", "flash_sdpa", "flash_tp_body",
+           "ranked", "shard_act", "gather_weights", "tp_weights",
+           "tp_body", "tp_enter", "tp_reduce", "tp_gather", "dp_reduce",
+           "batch_rows", "rows_of", "rows_split", "gather_rows", "rows_like",
+           "heads_tile", "kv_heads", "flash_sdpa", "flash_tp_body",
            "flash_applicable", "Attention", "attention_apply",
+           "attention_body",
            "attention_cache_init", "SwiGLU", "swiglu_apply", "dtype_of",
            "empty_weight", "dense_init_"]
 
@@ -72,18 +78,22 @@ def ranked(mesh) -> bool:
     return is_ranked(check_mesh(mesh))
 
 
-def no_ranks(mesh) -> None:
-    """Raise for a ``DeviceMesh``: training across ranks comes with
-    ROADMAP A10b.7b."""
-    if ranked(mesh):
-        raise NotImplementedError(
-            "training across the ranks of a DeviceMesh comes with ROADMAP "
-            "A10b.7b; serve across them with forward / decode_step")
-
-
 def _dp_axes(mesh) -> Tuple[str, ...]:
     from ..launch.mesh import mesh_shape
     return tuple(a for a in ("pod", "data") if a in mesh_shape(mesh))
+
+
+def _row_placements(mesh, n: int) -> Tuple:
+    """Placements of a batch of ``n`` rows: split over the data axes where
+    the DP degree divides ``n`` (the reference's constraint), replicated
+    otherwise."""
+    from ..launch.mesh import mesh_shape
+    from ..sharding.partition import placements
+    dp = _dp_axes(mesh)
+    shape = mesh_shape(mesh)
+    if not dp or n % math.prod(shape[a] for a in dp):
+        return placements(mesh, ())
+    return placements(mesh, (dp,))
 
 
 def shard_act(x, mesh, *, seq_axis: Optional[int] = 1):
@@ -95,27 +105,18 @@ def shard_act(x, mesh, *, seq_axis: Optional[int] = 1):
     the reference, and unused."""
     if mesh is None or not isinstance(x, DTensor):
         return x
-    from ..launch.mesh import mesh_shape
-    from ..sharding.partition import placements
-    dp = _dp_axes(mesh)
-    shape = mesh_shape(mesh)
-    if not dp or x.shape[0] % math.prod(shape[a] for a in dp):
+    where = _row_placements(mesh, x.shape[0])
+    if all(isinstance(p, Replicate) for p in where):
         return x
-    return x.redistribute(mesh, placements(mesh, (dp,)))
-
-
-# logical dims that stay TP-sharded when a layer's weights are gathered
-# (first matching dim wins: expert weights keep EP on the experts dim)
-_TP_NAMES = ("experts", "qheads", "mlp", "vocab", "ssm_inner")
+    return x.redistribute(mesh, where)
 
 
 def gather_weights(lp, axes, mesh):
     """ZeRO-3 weight gather at the layer boundary: every DTensor leaf of
     ``lp`` (a tensor or nested dicts of them, ``axes`` the same tree of
     logical dim names) is redistributed to its TP-only placement: the
-    first dim named in ``_TP_NAMES`` that the "model" axis divides stays
-    sharded over it, every other dim (the FSDP "embed" dim among them)
-    is gathered. A stacked leaf's leading "layers" name is dropped.
+    dim ``sharding.partition.tp_dim`` names stays sharded over "model",
+    every other dim (the FSDP "embed" dim among them) is gathered.
     Plain tensors are left as they are, as the reference leaves every
     leaf without a mesh."""
     if mesh is None:
@@ -125,36 +126,44 @@ def gather_weights(lp, axes, mesh):
     if not isinstance(lp, DTensor):
         return lp
     from ..launch.mesh import mesh_shape
-    from ..sharding.partition import placements
+    from ..sharding.partition import placements, tp_dim
     shape = mesh_shape(mesh)
     ax = axes[1:] if axes and axes[0] == "layers" else axes
     if len(ax) != lp.ndim or "model" not in shape:
         return lp
-    entries, used = [], False
-    for i, a in enumerate(ax):
-        take = (not used and a in _TP_NAMES
-                and lp.shape[i] % shape["model"] == 0)
-        entries.append("model" if take else None)
-        used = used or take
-    return lp.redistribute(mesh, placements(mesh, tuple(entries)))
+    d = tp_dim(tuple(lp.shape), ax, shape["model"])
+    return lp.redistribute(mesh, placements(mesh, tuple(
+        "model" if i == d else None for i in range(lp.ndim))))
 
 
 @contextlib.contextmanager
-def gathered_weights(module: nn.Module, mesh,
-                     skip: Tuple[str, ...] = ()) -> Iterator[None]:
-    """While the enclosed code runs, each DTensor parameter of ``module``
-    (but those under the children named in ``skip``) is gathered by
-    :func:`gather_weights`, by the dim names its module class gives in
-    ``AXES``, and then read whole: the module holds the full tensor, and
-    its DTensor again afterwards. Plain parameters are left alone."""
+def tp_weights(module: nn.Module, mesh,
+               skip: Tuple[str, ...] = ()) -> Iterator[None]:
+    """While the enclosed code runs across the ranks of a DeviceMesh, each
+    parameter of ``module`` (but those under the children named in
+    ``skip``) is the part of it this rank's tensor-parallel layer works
+    on, ``sharding.partition.tp_local`` by the dim names its module class
+    gives in ``AXES``: split over "model" where the class splits at that
+    degree (its ``splits(tp)``, if it has one), with ``Partial`` gradients
+    over "model" for the weights it names in ``TP_PARTIAL``. A DTensor
+    weight is gathered over the other axes; nothing is read whole. The
+    module holds its own parameters again afterwards. Without a
+    DeviceMesh nothing changes."""
+    if not ranked(mesh):
+        yield
+        return
+    from ..sharding.partition import tp_local
+    tp, _ = _tp(mesh)
     swapped = []
     for name, w in module.named_parameters():
-        if not isinstance(w, DTensor) or name.split(".")[0] in skip:
+        if name.split(".")[0] in skip:
             continue
         mod, _, attr = name.rpartition(".")
         owner = module.get_submodule(mod)
-        full = gather_weights(w, type(owner).AXES[attr], mesh).full_tensor()
-        owner._parameters[attr] = full
+        split = owner.splits(tp) if hasattr(owner, "splits") else True
+        owner._parameters[attr] = tp_local(
+            w, type(owner).AXES[attr], mesh, split=split,
+            partial=split and attr in getattr(owner, "TP_PARTIAL", ()))
         swapped.append((owner, attr, w))
     try:
         yield
@@ -163,41 +172,144 @@ def gathered_weights(module: nn.Module, mesh,
             owner._parameters[attr] = w
 
 
-def rows_across_ranks(module: nn.Module, mesh, embed, layers, step,
-                      head) -> torch.Tensor:
-    """A forward across the ranks of ``mesh`` in which every layer is
-    independent per batch row: ``embed()`` (B, S, D), whole on every
-    rank, becomes the residual DTensor (:func:`residual`), each layer of
-    ``layers`` runs ``step(layer, rows)`` on the rank's rows with its
-    weights gathered (:func:`gathered_weights`), and ``head(rows)`` gives
-    the rank's logits; the whole logits come back on every rank.
-    ``module``'s other DTensor weights are gathered for the whole call."""
-    with gathered_weights(module, mesh, skip=("layers",)):
-        h = residual(embed(), mesh)
-        for lp in layers:
-            h = shard_act(h, mesh)
-            with gathered_weights(lp, mesh):
-                h = shard_act(rows_like(step(lp, h.to_local()), h), mesh)
-        return rows_like(head(h.to_local()), h).full_tensor()
+def tp_body(module: nn.Module, mesh, fn):
+    """``h -> fn(module, h)`` with ``module``'s weights under
+    :func:`tp_weights`, inside the function, so that a recomputation
+    under ``torch.utils.checkpoint`` reads them the same way."""
+    def body(h):
+        with tp_weights(module, mesh):
+            return fn(module, h)
+    return body
 
 
-def residual(x: torch.Tensor, mesh) -> DTensor:
-    """A (B, ...) tensor that every rank holds whole as the residual
-    stream's DTensor: its rows split over the data axes where the DP
-    degree divides B (:func:`shard_act`), replicated otherwise."""
-    return shard_act(DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim,
-                                        run_check=False), mesh)
+# --------------------------------------------------------------------------
+# the conjugate pair of a tensor-parallel block over "model": f at its
+# input (identity, the gradient summed over the ranks), g at its output
+# (the partial outputs summed, the gradient passed on); and the logits'
+# gather over the vocab split
+# --------------------------------------------------------------------------
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
-def local_rows(x: DTensor) -> slice:
-    """The global rows (dim 0) of ``x`` that this rank holds."""
-    mesh = x.device_mesh
-    lo, n = 0, x.shape[0]
-    for d, (p, c) in enumerate(zip(x.placements, mesh.get_coordinate())):
-        if isinstance(p, Shard) and p.dim == 0:
-            step = -(-n // mesh.size(d))
-            lo, n = lo + c * step, max(0, min(step, n - c * step))
-    return slice(lo, lo + n)
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, idx, n):
+        import torch.distributed as dist
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        ctx.lo, ctx.width = idx * x.shape[-1], x.shape[-1]
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[..., ctx.lo:ctx.lo + ctx.width].contiguous(), None, \
+            None, None
+
+
+def _model_group(mesh):
+    tp, _ = _tp(mesh)
+    return mesh.get_group("model") if tp > 1 else None
+
+
+def tp_enter(x: torch.Tensor, mesh) -> torch.Tensor:
+    """f: the input of a column-parallel product (identity; its gradient
+    is summed over "model")."""
+    group = _model_group(mesh)
+    return x if group is None else _Enter.apply(x, group)
+
+
+def tp_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    """g: the output of a row-parallel product, summed over "model" (its
+    gradient passed on as it is)."""
+    group = _model_group(mesh)
+    return x if group is None else _Reduce.apply(x, group)
+
+
+def tp_gather(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The last dim of a column-parallel output gathered over "model" in
+    rank order; the gradient of each rank's columns goes back to it."""
+    tp, idx = _tp(mesh)
+    return x if tp == 1 else _Gather.apply(x, mesh.get_group("model"),
+                                           idx, tp)
+
+
+def dp_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over the data axes of a DeviceMesh (g over each), its
+    gradient passed on: the global numerator or count of a loss whose
+    rows are split over those axes."""
+    from ..launch.mesh import mesh_shape
+    if not ranked(mesh):
+        return x
+    for a in _dp_axes(mesh):
+        if mesh_shape(mesh)[a] > 1:
+            x = _Reduce.apply(x, mesh.get_group(a))
+    return x
+
+
+def batch_rows(n: int, mesh) -> slice:
+    """The rows of a batch of ``n`` that this rank runs: its block of the
+    split over the data axes (the rows :func:`shard_act` places on it),
+    all of them without a DeviceMesh or where the DP degree does not
+    divide ``n``."""
+    if not ranked(mesh):
+        return slice(None)
+    lo, m = 0, n
+    for d, p in enumerate(_row_placements(mesh, n)):
+        if isinstance(p, Shard):
+            m //= mesh.size(d)
+            lo = lo * mesh.size(d) + mesh.get_coordinate()[d]
+    return slice(lo * m, (lo + 1) * m)
+
+
+def rows_of(local: torch.Tensor, mesh, n: int) -> DTensor:
+    """This rank's rows ``local`` (:func:`batch_rows`) of a batch of ``n``
+    as a DTensor placed as the batch's rows are."""
+    shape = (n,) + tuple(local.shape[1:])
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local.contiguous(), mesh,
+                              _row_placements(mesh, n), run_check=False,
+                              shape=shape, stride=stride)
+
+
+def rows_split(rows: DTensor) -> bool:
+    """Whether every axis of more than one rank but "model" splits the
+    batch ``rows`` (:func:`rows_of`): each rank's rows are then its block
+    of the tokens when they are split over every axis."""
+    mesh = rows.device_mesh
+    return all(isinstance(p, Shard) or mesh.size(i) == 1
+               for i, p in enumerate(rows.placements)
+               if mesh.mesh_dim_names[i] != "model")
+
+
+def gather_rows(local: torch.Tensor, mesh, n: int) -> torch.Tensor:
+    """The whole (n, ...) batch on every rank from each rank's rows."""
+    return rows_of(local, mesh, n).full_tensor()
 
 
 def rows_like(local: torch.Tensor, ref: DTensor,
@@ -318,20 +430,38 @@ def _tp(mesh) -> Tuple[int, int]:
                 else 0)
 
 
+def heads_tile(q_heads: int, kv_heads: int, tp: int) -> bool:
+    """Whether ``q_heads`` query heads split evenly over ``tp`` ranks with
+    each rank's heads spanning whole KV groups, or lying within one
+    (``H_loc % G == 0`` or ``G % H_loc == 0``, ``G = H / KV``): the
+    reference's condition for its tensor-parallel flash branch, and the
+    port's for splitting GQA attention by heads."""
+    if q_heads % tp:
+        return False
+    H_loc = q_heads // tp
+    G = q_heads // max(kv_heads, 1)
+    return (H_loc % G == 0) or (G % H_loc == 0)
+
+
+def kv_heads(q_heads: int, kv: int, tp: int, rank: int) -> Tuple[int, int]:
+    """(first, count) of the KV heads that rank ``rank``'s ``q_heads /
+    tp`` query heads read. GQA orders heads contiguously (query head
+    ``h`` reads KV head ``h // G``, ``G = H / KV``), so they are the
+    ``max(1, ceil(H_loc / G))`` heads from ``rank * H_loc // G``."""
+    H_loc = q_heads // tp
+    G = q_heads // kv
+    return rank * H_loc // G, max(1, -(-H_loc // G))
+
+
 def flash_tp_body(q_local: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   rank: int, tp: int, *, causal: bool = True) -> torch.Tensor:
     """One rank's flash attention under tensor parallelism: q_local (B, S,
     H / tp, hd) holds query heads ``rank * H_loc`` on; k, v (B, S, KV, hd)
-    hold every KV head. GQA orders heads contiguously (query head ``h``
-    reads KV head ``h // G``, ``G = H / KV``), so the rank's heads read the
-    ``n_kv_loc = max(1, ceil(H_loc / G))`` KV heads from ``kv0 = rank *
-    H_loc // G``, and the kernel is launched on those."""
-    H_loc = q_local.shape[2]
-    G = H_loc * tp // k.shape[2]
-    n_kv_loc = max(1, -(-H_loc // G))
-    kv0 = rank * H_loc // G
-    return flash_attention(q_local, k[:, :, kv0:kv0 + n_kv_loc],
-                           v[:, :, kv0:kv0 + n_kv_loc], causal=causal)
+    hold every KV head. The kernel is launched on the rank's heads and
+    the KV heads they read (:func:`kv_heads`)."""
+    kv0, n_kv = kv_heads(q_local.shape[2] * tp, k.shape[2], tp, rank)
+    return flash_attention(q_local, k[:, :, kv0:kv0 + n_kv],
+                           v[:, :, kv0:kv0 + n_kv], causal=causal)
 
 
 def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh=None,
@@ -339,36 +469,25 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh=None,
     """Blockwise attention for prefill through the flash kernel (no S^2
     traffic to device memory). Forward only: the kernel has no backward.
 
-    q (B, S, H, hd), k/v (B, S, KV, hd): the rank's batch rows. Without a
-    "model" axis of more than one rank this is one launch. Across the
-    ``tp`` ranks of that axis each rank launches :func:`flash_tp_body` on
-    its ``H / tp`` query heads and the heads are gathered from the
-    ranks (``all_gather`` over the axis' group) in order."""
+    k/v (B, S, KV, hd): every KV head of the rank's batch rows. Without a
+    "model" axis of more than one rank, q (B, S, H, hd) holds every query
+    head and this is one launch. Across the ``tp`` ranks of that axis q
+    holds this rank's ``H / tp`` heads, projected by its share of the
+    query weights, and the rank launches :func:`flash_tp_body` on them;
+    the result is its heads' output."""
     tp, idx = _tp(mesh)
     if tp == 1:
         return flash_attention(q, k, v, causal=causal)
-    ranked(mesh)      # a layout of several ranks has no group: raises
-    import torch.distributed as dist
-    H_loc = q.shape[2] // tp
-    out = flash_tp_body(q[:, :, idx * H_loc:(idx + 1) * H_loc], k, v, idx,
-                        tp, causal=causal).contiguous()
-    parts = [torch.empty_like(out) for _ in range(tp)]
-    dist.all_gather(parts, out, group=mesh.get_group("model"))
-    return torch.cat(parts, dim=2)
+    return flash_tp_body(q, k, v, idx, tp, causal=causal)
 
 
 def flash_applicable(cfg: ModelConfig, q_heads: int, seq: int,
                      mesh=None) -> bool:
     """Whether the reference takes the flash branch: ``seq % 8 == 0``,
     and under tensor parallelism (``tp`` ranks on "model") the query
-    heads split evenly and each rank's heads span whole KV groups, or
-    lie within one (``H_loc % G == 0`` or ``G % H_loc == 0``)."""
+    heads split by :func:`heads_tile`."""
     tp, _ = _tp(mesh)
-    if q_heads % tp != 0 or seq % 8 != 0:
-        return False
-    H_loc = q_heads // tp
-    G = q_heads // max(cfg.n_kv_heads, 1)
-    return (H_loc % G == 0) or (G % H_loc == 0)
+    return seq % 8 == 0 and heads_tile(q_heads, cfg.n_kv_heads, tp)
 
 
 # --------------------------------------------------------------------------
@@ -417,20 +536,28 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
 
 
 class Attention(nn.Module):
-    """GQA attention weights: wq (D, H*hd), wk/wv (D, KV*hd), wo (H*hd, D)."""
+    """GQA attention weights: wq (D, H*hd), wk/wv (D, KV*hd), wo (H*hd, D).
+    Under tensor parallelism over ``tp`` ranks whose heads tile
+    (:func:`heads_tile`) ``wq`` is split by its columns and ``wo`` by its
+    rows; ``wk`` / ``wv`` stay whole, each rank reading its KV heads."""
 
     AXES = {"wq": ("embed", "qheads"), "wk": ("embed", "kvheads"),
             "wv": ("embed", "kvheads"), "wo": ("qheads", "embed")}
+    TP_PARTIAL = ("wk", "wv")
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         D, hd = cfg.d_model, cfg.resolved_head_dim
         H, KV = cfg.n_heads, cfg.n_kv_heads
+        self.n_heads, self.n_kv_heads = H, KV
         dt = dtype_of(cfg.param_dtype)
         self.wq = empty_weight((D, H * hd), dt, device)
         self.wk = empty_weight((D, KV * hd), dt, device)
         self.wv = empty_weight((D, KV * hd), dt, device)
         self.wo = empty_weight((H * hd, D), dt, device)
+
+    def splits(self, tp: int) -> bool:
+        return heads_tile(self.n_heads, self.n_kv_heads, tp)
 
     def init_(self, generator: torch.Generator) -> None:
         for w in (self.wq, self.wk, self.wv, self.wo):
@@ -449,11 +576,44 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     (dict k/v (B, Smax, KV, hd)) performs one decode step: x is (B, S, D)
     with S new tokens, ``cache_index`` the write position. The cache is
     updated in place (the reference returns an updated copy) and
-    returned. Returns (out, cache)."""
+    returned. With ``flash`` the prefill takes the flash kernel where the
+    reference would. Returns (out, cache).
+
+    Under :func:`tp_weights` on a DeviceMesh whose "model" axis splits the
+    heads, ``p`` holds this rank's columns of ``wq`` and rows of ``wo``:
+    the rank runs :func:`attention_body` on its heads between
+    :func:`tp_enter` and :func:`tp_reduce`, which sums the ranks'
+    outputs."""
+    H, S = cfg.n_heads, x.shape[1]
+    split = p.wq.shape[-1] // cfg.resolved_head_dim != H
+    tp, idx = _tp(mesh) if split else (1, 0)
+    take_flash = (flash and cache is None and cfg.causal
+                  and flash_applicable(cfg, H, S, mesh))
+    out, cache = attention_body(
+        cfg, p, tp_enter(x, mesh) if split else x, positions, rank=idx,
+        tp=tp, mrope_positions=mrope_positions, cache=cache,
+        cache_index=cache_index, flash=take_flash)
+    return (tp_reduce(out, mesh) if split else out), cache
+
+
+def attention_body(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                   positions: Optional[torch.Tensor], *, rank: int = 0,
+                   tp: int = 1, mrope_positions: Optional[torch.Tensor] = None,
+                   cache: Optional[Dict[str, torch.Tensor]] = None,
+                   cache_index: Optional[int] = None, flash: bool = False):
+    """One rank's attention under tensor parallelism over ``tp`` ranks
+    (the whole layer at ``tp`` 1): ``p.wq`` holds the columns of query
+    heads ``rank * H / tp`` on and ``p.wo`` their rows; ``wk`` / ``wv``
+    are whole, so every KV head is projected (and cached) and the rank's
+    heads attend over the KV heads they read (:func:`kv_heads`), through
+    the flash kernel (:func:`flash_tp_body`) where ``flash``. Returns
+    (the rank's share of the output, which the ranks sum; cache)."""
     B, S, D = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    q = (x @ p.wq.to(x.dtype)).reshape(B, S, H, hd)
+    H_loc = p.wq.shape[-1] // hd
+    kv0, n_kv = kv_heads(H, KV, tp, rank)
+    q = (x @ p.wq.to(x.dtype)).reshape(B, S, H_loc, hd)
     k = (x @ p.wk.to(x.dtype)).reshape(B, S, KV, hd)
     v = (x @ p.wv.to(x.dtype)).reshape(B, S, KV, hd)
     if cfg.mrope_sections:
@@ -469,13 +629,15 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         i = int(cache_index)
         cache["k"][:, i:i + S] = k.to(cache["k"].dtype)
         cache["v"][:, i:i + S] = v.to(cache["v"].dtype)
-        out = _sdpa(q, cache["k"], cache["v"], causal=False, kv_len=i + S)
-    elif flash and cfg.causal and flash_applicable(cfg, H, S, mesh):
-        out = flash_sdpa(q, k, v, mesh, causal=True)
+        out = _sdpa(q, cache["k"][:, :, kv0:kv0 + n_kv],
+                    cache["v"][:, :, kv0:kv0 + n_kv], causal=False,
+                    kv_len=i + S)
+    elif flash:
+        out = flash_tp_body(q, k, v, rank, tp, causal=True)
     else:
-        out = _sdpa(q, k, v, causal=cfg.causal)
-    out = out.reshape(B, S, H * hd)
-    return out @ p.wo.to(x.dtype), cache
+        out = _sdpa(q, k[:, :, kv0:kv0 + n_kv], v[:, :, kv0:kv0 + n_kv],
+                    causal=cfg.causal)
+    return out.reshape(B, S, H_loc * hd) @ p.wo.to(x.dtype), cache
 
 
 def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int,
@@ -496,7 +658,8 @@ def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int,
 # --------------------------------------------------------------------------
 
 class SwiGLU(nn.Module):
-    """w_gate/w_up (D, F), w_down (F, D)."""
+    """w_gate/w_up (D, F), w_down (F, D); under tensor parallelism the
+    first two split by columns, ``w_down`` by rows."""
 
     AXES = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
             "w_down": ("mlp", "embed")}
@@ -505,6 +668,7 @@ class SwiGLU(nn.Module):
                  device=None):
         super().__init__()
         D, F = cfg.d_model, d_ff or cfg.d_ff
+        self.d_ff = F
         dt = dtype_of(cfg.param_dtype)
         self.w_gate = empty_weight((D, F), dt, device)
         self.w_up = empty_weight((D, F), dt, device)
@@ -515,8 +679,15 @@ class SwiGLU(nn.Module):
             dense_init_(w, generator)
 
 
-def swiglu_apply(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
+def swiglu_apply(p: SwiGLU, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The FFN on x (..., D); with ``p`` split over "model" (under
+    :func:`tp_weights`) each rank computes its columns of the hidden
+    layer and the ranks' outputs are summed."""
     dt = x.dtype
+    split = p.w_gate.shape[-1] != p.d_ff
+    if split:
+        x = tp_enter(x, mesh)
     gate = nn.functional.silu(x @ p.w_gate.to(dt))
     up = x @ p.w_up.to(dt)
-    return (gate * up) @ p.w_down.to(dt)
+    out = (gate * up) @ p.w_down.to(dt)
+    return tp_reduce(out, mesh) if split else out

@@ -40,15 +40,19 @@ the cache index, as the reference's does.
 ``mesh`` is ``None``, a mesh of one card or a ``DeviceMesh`` (``launch.
 mesh``). With a mesh the moe family's layers take the expert-parallel
 path with its capacity drops, as the reference's do. Across the ranks of
-a ``DeviceMesh`` (:func:`forward`, :func:`decode_step`) every rank
-passes the same batch and the same weights (plain tensors, or DTensors
-that each layer gathers while it runs), and the residual stream is a
-DTensor whose batch rows split over the data axes (``layers.shard_act``
-at each layer boundary): each rank runs the layers on its rows, the
-flash prefill splits query heads over "model" (``layers.flash_sdpa``),
-the MoE routes tokens over "model" with all-to-alls
-(``moe.moe_apply_ep``), and every rank gets the whole logits back.
-Training across ranks (:func:`loss_fn`) comes with ROADMAP A10b.7b.
+a ``DeviceMesh`` every rank passes the same batch and the same weights
+(plain tensors, or DTensors placed by the partition rules), and each
+rank runs its block of the batch rows (``layers.batch_rows``) through
+layers that are tensor parallel over "model" (``layers.tp_weights``):
+the embedding table is split by vocabulary rows (a masked local lookup,
+the ranks' rows summed), attention by heads (the flash prefill launches
+the kernel on the rank's heads), the FFN by its hidden columns, the MoE
+by experts with all-to-alls (``moe.moe_apply_ep``), and the head by
+vocabulary columns, whose logits are gathered over "model" (the rank's
+rows, ``B_loc x S x padded_vocab`` values of the compute type).
+:func:`forward` and :func:`decode_step` give every rank the whole
+logits; :func:`loss_fn` is the global masked mean, its numerator and its
+count summed over the data axes before the division.
 """
 
 from __future__ import annotations
@@ -67,7 +71,8 @@ from . import mla as MLA
 from . import moe as MOE
 
 __all__ = ["LM", "Block", "check_ported", "abstract_init", "forward",
-           "forward_train", "cross_entropy", "loss_fn", "init_cache",
+           "forward_train", "forward_rows", "embed_tokens", "cross_entropy",
+           "ranked_loss", "loss_fn", "init_cache",
            "decode_step", "REMAT", "check_remat", "remat_apply"]
 
 REMAT = ("none", "full", "dots")
@@ -160,21 +165,24 @@ def abstract_init(cfg: ModelConfig) -> LM:
 def _ffn_block(cfg: ModelConfig, lp: Block, h_norm: torch.Tensor,
                mesh=None, ref: Optional[DTensor] = None) -> torch.Tensor:
     """The FFN on h_norm (B, S, D); across ranks h_norm holds the rank's
-    rows of the residual DTensor ``ref``, and the MoE sees every token as
-    a DTensor placed like those rows."""
+    rows of the batch, placed as the DTensor ``ref`` says
+    (``layers.rows_of``), and the MoE sees every token as a DTensor placed
+    like those rows (or, at an EP degree of 1, the rank's own tokens)."""
     if not cfg.n_experts:
-        return L.swiglu_apply(lp.ffn, h_norm)
+        return L.swiglu_apply(lp.ffn, h_norm, mesh)
     B, S, D = h_norm.shape
     tokens = h_norm.reshape(B * S, D)
     if mesh is None:
         y = MOE.moe_apply_dense(cfg, lp.moe, tokens)
-    elif ref is None:
+    elif ref is None or (L._tp(mesh)[0] == 1 and L.rows_split(ref)):
+        # one card, or an EP degree of 1 over rows that are the rank's own
+        # tokens: the body runs on them as on one card
         y = MOE.moe_apply_ep(cfg, lp.moe, tokens, mesh)
     else:
         y = MOE.moe_apply_ep(cfg, lp.moe, L.rows_like(
             tokens, ref, ref.shape[0] * S), mesh).to_local()
     if cfg.n_shared_experts:
-        y = y + L.swiglu_apply(lp.shared, tokens)
+        y = y + L.swiglu_apply(lp.shared, tokens, mesh)
     return y.reshape(B, S, D)
 
 
@@ -186,13 +194,13 @@ def _layer_apply(cfg: ModelConfig, lp: Block, h: torch.Tensor,
                  ref: Optional[DTensor] = None):
     """One block on h (B, S, D). ``positions`` (B, S) drive RoPE,
     ``mrope`` (3, B, S) M-RoPE (vlm; ``positions`` is then None). Across
-    ranks h is the rank's rows of the residual DTensor ``ref``."""
+    ranks h is the rank's rows of the batch, placed as ``ref`` says."""
     h_norm = lp.norm_attn(h)
     if cfg.use_mla:
         # MLA has no flash branch, in the reference as here
         attn_out, new_cache = MLA.mla_apply(
             cfg, lp.attn, h_norm, positions, cache=cache,
-            cache_index=cache_index)
+            cache_index=cache_index, mesh=mesh)
     else:
         attn_out, new_cache = L.attention_apply(
             cfg, lp.attn, h_norm, positions, mrope_positions=mrope,
@@ -202,18 +210,42 @@ def _layer_apply(cfg: ModelConfig, lp: Block, h: torch.Tensor,
     return h, new_cache
 
 
-def _embed_batch(cfg: ModelConfig, lm: LM, batch: Dict):
+def embed_tokens(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
+    """Rows of the embedding ``table`` for ``tokens``, in the compute type.
+    A table split over "model" by vocabulary rows (``layers.tp_weights``)
+    looks up the tokens it holds, zeros for the others, and the ranks'
+    rows are summed."""
+    dt = L.dtype_of(cfg.compute_dtype)
+    V_loc = table.shape[0]
+    if V_loc == cfg.padded_vocab:
+        return table[tokens].to(dt)
+    _, idx = L._tp(mesh)
+    ids = tokens.long() - idx * V_loc
+    inside = (ids >= 0) & (ids < V_loc)
+    rows = table[ids.clamp(0, V_loc - 1)].to(dt)
+    return L.tp_reduce(torch.where(inside[..., None], rows, 0.0).to(dt),
+                       mesh)
+
+
+def _batch_size(batch: Dict) -> int:
+    return next(batch[k] for k in ("tokens", "frames")
+                if k in batch).shape[0]
+
+
+def _embed_batch(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
+                 rows: slice = slice(None)):
     """-> (h (B, S, D) in the compute type, positions (B, S) or None,
-    M-RoPE positions (3, B, S) or None). audio: the frames; vlm: the
-    patches followed by the embedded text, with the batch's M-RoPE
-    streams; otherwise the embedded tokens."""
+    M-RoPE positions (3, B, S) or None) of the batch's ``rows``. audio:
+    the frames; vlm: the patches followed by the embedded text, with the
+    batch's M-RoPE streams; otherwise the embedded tokens."""
     dt = L.dtype_of(cfg.compute_dtype)
     if cfg.family == "vlm":
-        text = lm.embed[batch["tokens"]].to(dt)
-        h = torch.cat([batch["patches"].to(dt), text], dim=1)
-        return h, None, batch["positions"]
-    h = (batch["frames"].to(dt) if cfg.family == "audio"
-         else lm.embed[batch["tokens"]].to(dt))
+        text = embed_tokens(cfg, lm.embed, batch["tokens"][rows], mesh)
+        h = torch.cat([batch["patches"][rows].to(dt), text], dim=1)
+        return h, None, batch["positions"][:, rows]
+    h = (batch["frames"][rows].to(dt) if cfg.family == "audio"
+         else embed_tokens(cfg, lm.embed, batch["tokens"][rows], mesh))
     B, S = h.shape[:2]
     return h, torch.arange(S, device=h.device)[None, :].expand(B, S), None
 
@@ -224,9 +256,18 @@ def _tied(cfg: ModelConfig) -> bool:
     return cfg.tie_embeddings and cfg.embed_inputs
 
 
-def _head(cfg: ModelConfig, lm: LM, h: torch.Tensor) -> torch.Tensor:
-    logits = (h @ lm.embed.T.to(h.dtype) if _tied(cfg)
-              else h @ lm.head.to(h.dtype))
+def _head(cfg: ModelConfig, lm: LM, h: torch.Tensor,
+          mesh=None) -> torch.Tensor:
+    """Logits of h. A head split over "model" by vocabulary columns
+    (``layers.tp_weights``) computes the rank's columns, and the columns
+    are gathered from the ranks."""
+    w = lm.embed.T if _tied(cfg) else lm.head
+    split = w.shape[-1] != cfg.padded_vocab
+    if split:
+        h = L.tp_enter(h, mesh)
+    logits = h @ w.to(h.dtype)
+    if split:
+        logits = L.tp_gather(logits, mesh)
     # tables are padded to cfg.padded_vocab
     return logits[..., :cfg.vocab_size]
 
@@ -276,10 +317,12 @@ def forward_train(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
                   remat: str = "none", flash: bool = False) -> torch.Tensor:
     """Logits (B, S, vocab) in the compute type, recording gradients for
     whichever weights require them, each layer under
-    :func:`remat_apply`."""
+    :func:`remat_apply`. Across the ranks of a DeviceMesh every rank gets
+    the whole logits."""
     check_remat(remat)
     if L.ranked(mesh):
-        return _forward_ranked(cfg, lm, batch, mesh, flash)
+        logits, _ = forward_rows(cfg, lm, batch, mesh, remat, flash)
+        return L.gather_rows(logits, mesh, _batch_size(batch))
     h, positions, mrope = _embed_batch(cfg, lm, batch)
     for lp in lm.layers:
         h = remat_apply(lambda h, lp=lp: _layer_apply(
@@ -289,24 +332,20 @@ def forward_train(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
     return _head(cfg, lm, h)
 
 
-def _forward_ranked(cfg: ModelConfig, lm: LM, batch: Dict, mesh,
-                    flash: bool) -> torch.Tensor:
-    """The forward across the ranks of a DeviceMesh (see the module's
-    note): the whole logits on every rank."""
-    with L.gathered_weights(lm, mesh, skip=("layers",)):
-        h, positions, mrope = _embed_batch(cfg, lm, batch)
-        h = L.residual(h, mesh)
-        rows = L.local_rows(h)
-        positions = None if positions is None else positions[rows]
-        mrope = None if mrope is None else mrope[:, rows]
+def forward_rows(cfg: ModelConfig, lm: LM, batch: Dict, mesh,
+                 remat: str = "none", flash: bool = False):
+    """Across the ranks of a DeviceMesh (see the module's note): (this
+    rank's rows' logits (B_loc, S, vocab), those rows of the batch)."""
+    B = _batch_size(batch)
+    rows = L.batch_rows(B, mesh)
+    with L.tp_weights(lm, mesh, skip=("layers",)):
+        h, positions, mrope = _embed_batch(cfg, lm, batch, mesh, rows)
+        ref = L.rows_of(h.detach(), mesh, B)
         for lp in lm.layers:
-            h = L.shard_act(h, mesh)
-            with L.gathered_weights(lp, mesh):
-                out, _ = _layer_apply(cfg, lp, h.to_local(), positions, mesh,
-                                      flash=flash, mrope=mrope, ref=h)
-            h = L.shard_act(L.rows_like(out, h), mesh)
-        logits = _head(cfg, lm, lm.norm_f(h.to_local()))
-    return L.rows_like(logits, h).full_tensor()
+            h = remat_apply(L.tp_body(lp, mesh, lambda lp, h: _layer_apply(
+                cfg, lp, h, positions, mesh, flash=flash, mrope=mrope,
+                ref=ref)[0]), h, remat)
+        return _head(cfg, lm, lm.norm_f(h), mesh), rows
 
 
 @torch.no_grad()
@@ -321,11 +360,10 @@ def forward(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
     return forward_train(cfg, lm, batch, mesh, flash=flash)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore: int = -100) -> torch.Tensor:
-    """Masked cross entropy in float32; labels == ``ignore`` are excluded.
-    The gold logit is picked by indexing, whose backward has a
-    deterministic CUDA implementation."""
+def _nll_terms(logits: torch.Tensor, labels: torch.Tensor,
+               ignore: int = -100):
+    """(sum of the masked negative log-likelihoods, count of the labels
+    kept), float32."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     flat = logits.reshape(-1, logits.shape[-1])
@@ -333,16 +371,45 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     gold = flat[rows, labels.reshape(-1).clamp_min(0).long()]
     nll = lse - gold.reshape(labels.shape)
     mask = (labels != ignore).to(torch.float32)
-    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.sum(nll * mask), torch.sum(mask)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore: int = -100, mesh=None) -> torch.Tensor:
+    """Masked cross entropy in float32; labels == ``ignore`` are excluded.
+    The gold logit is picked by indexing, whose backward has a
+    deterministic CUDA implementation. With a DeviceMesh, logits and
+    labels are this rank's rows and the mean is the global one: the
+    numerator and the count are each summed over the data axes
+    (``layers.dp_reduce``) before the division."""
+    num, cnt = _nll_terms(logits, labels, ignore)
+    num, cnt = L.dp_reduce(num, mesh), L.dp_reduce(cnt, mesh)
+    return num / torch.clamp_min(cnt, 1.0)
+
+
+def ranked_loss(logits: torch.Tensor, rows: slice, batch: Dict,
+                mesh) -> torch.Tensor:
+    """The loss across the ranks of a DeviceMesh from this rank's rows'
+    ``logits`` (a family's ``forward_rows``): the global masked mean of
+    :func:`cross_entropy`. The DP degree must divide the batch: ranks
+    that held the same rows would count their gradients once each."""
+    from ..launch.mesh import mesh_shape
+    dp = [n for a, n in mesh_shape(mesh).items() if a in ("pod", "data")]
+    if rows == slice(None) and any(n > 1 for n in dp):
+        raise ValueError(f"a batch of {_batch_size(batch)} rows does not "
+                         f"split over data axes of sizes {dp}")
+    return cross_entropy(logits, batch["labels"][rows], mesh=mesh)
 
 
 def loss_fn(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
             remat: str = "none") -> torch.Tensor:
     """Mean cross entropy of ``batch``'s logits against its labels (those
     of -100 left out) with plain attention, as the reference's (the flash
-    kernel has no backward). Across the ranks of a DeviceMesh it raises:
-    training across ranks comes with ROADMAP A10b.7b."""
-    L.no_ranks(mesh)
+    kernel has no backward). Across the ranks of a DeviceMesh each rank
+    takes its rows and the mean is global (:func:`cross_entropy`)."""
+    if L.ranked(mesh):
+        logits, rows = forward_rows(cfg, lm, batch, mesh, remat)
+        return ranked_loss(logits, rows, batch, mesh)
     logits = forward_train(cfg, lm, batch, mesh, remat=remat)
     return cross_entropy(logits, batch["labels"])
 
@@ -367,31 +434,30 @@ def decode_step(cfg: ModelConfig, lm: LM, cache: Dict[str, torch.Tensor],
     length. Writes the new keys and values (for MLA the latent and the
     RoPE key) into ``cache`` in place and returns (logits (B, 1, vocab),
     cache). The audio family is an encoder and raises ValueError; a vlm
-    step embeds text and turns all three M-RoPE streams by ``pos``."""
+    step embeds text and turns all three M-RoPE streams by ``pos``.
+    Across the ranks of a DeviceMesh each rank steps its rows with
+    tensor-parallel layers, writes their caches, and returns the whole
+    logits."""
     if cfg.family == "audio":
         raise ValueError("encoder-only architecture has no decode step")
     ranked = L.ranked(mesh)
-    dt = L.dtype_of(cfg.compute_dtype)
     pos = int(pos)
-    with L.gathered_weights(lm, mesh, skip=("layers",)):
-        h = lm.embed[tokens].to(dt)
-        rows, ref = slice(None), None
-        if ranked:
-            ref = L.residual(h, mesh)
-            rows = L.local_rows(ref)
-            h = ref.to_local()
-        B = h.shape[0]
-        positions = torch.full((B, 1), pos, dtype=torch.int32,
+    B = tokens.shape[0]
+    rows = L.batch_rows(B, mesh)
+    with L.tp_weights(lm, mesh, skip=("layers",)):
+        h = embed_tokens(cfg, lm.embed, tokens[rows], mesh)
+        ref = L.rows_of(h, mesh, B) if ranked else None
+        positions = torch.full((h.shape[0], 1), pos, dtype=torch.int32,
                                device=h.device)
-        mrope = (positions[None].expand(3, B, 1) if cfg.mrope_sections
-                 else None)
+        mrope = (positions[None].expand(3, h.shape[0], 1)
+                 if cfg.mrope_sections else None)
         for i, lp in enumerate(lm.layers):
             layer_cache = {name: c[i][rows] for name, c in cache.items()}
-            with L.gathered_weights(lp, mesh):
+            with L.tp_weights(lp, mesh):
                 h, _ = _layer_apply(cfg, lp, h, positions, mesh,
                                     cache=layer_cache, cache_index=pos,
                                     mrope=mrope, ref=ref)
-        logits = _head(cfg, lm, lm.norm_f(h))
+        logits = _head(cfg, lm, lm.norm_f(h), mesh)
     if ranked:
-        logits = L.rows_like(logits, ref).full_tensor()
+        logits = L.gather_rows(logits, mesh, B)
     return logits, cache

@@ -13,6 +13,11 @@ B/C group. The SSD's products, the decay and ``dt`` run in float32
 whatever the compute type; ``A_log``, ``dt_bias`` and ``D_skip`` are
 float32 parameters (the train step's compute copy holds them in the
 compute type, as the reference's does, and float32 math promotes them).
+
+Under tensor parallelism (``layers.tp_weights`` on a DeviceMesh whose
+"model" axis divides ``d_inner``) ``out_proj`` is split by its rows: each
+rank runs the whole SSM (its weights stay whole) and projects its slice
+of the gated inner activations, and the ranks' outputs are summed.
 """
 
 from __future__ import annotations
@@ -49,13 +54,16 @@ class Mamba2(nn.Module):
             "conv_w": ("conv_width", "ssm_conv"), "conv_b": ("ssm_conv",),
             "A_log": ("ssm_heads",), "dt_bias": ("ssm_heads",),
             "D_skip": ("ssm_heads",), "out_proj": ("ssm_inner", "embed")}
+    # whole on every rank, each of which projects its own slice
+    TP_PARTIAL = ("in_proj", "conv_w", "conv_b", "A_log", "dt_bias",
+                  "D_skip")
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         D, N = cfg.d_model, cfg.ssm_state
         d_inner, nheads, conv_ch = mamba2_dims(cfg)
         dt = L.dtype_of(cfg.param_dtype)
-        self.nheads = nheads
+        self.nheads, self.d_inner = nheads, d_inner
         self.in_proj = L.empty_weight((D, 2 * d_inner + 2 * N + nheads), dt,
                                       device)
         self.conv_w = L.empty_weight((cfg.ssm_conv_width, conv_ch), dt,
@@ -65,6 +73,9 @@ class Mamba2(nn.Module):
         self.dt_bias = L.empty_weight((nheads,), F32, device)
         self.D_skip = L.empty_weight((nheads,), F32, device)
         self.out_proj = L.empty_weight((d_inner, D), dt, device)
+
+    def splits(self, tp: int) -> bool:
+        return self.d_inner % tp == 0
 
     def init_(self, generator: torch.Generator) -> None:
         """The reference's scales: projections N(0, 2 / (in + out)), conv
@@ -149,11 +160,28 @@ def _ssd_chunk_scan(la: torch.Tensor, Cc: torch.Tensor, Bc: torch.Tensor,
             * torch.exp(la_cum)[..., None])
 
 
-def mamba2_apply(cfg: ModelConfig, p: Mamba2,
-                 x_in: torch.Tensor) -> torch.Tensor:
+def _out_proj(p: Mamba2, y: torch.Tensor, mesh) -> torch.Tensor:
+    """y (..., d_inner) through ``out_proj``, or through this rank's rows
+    of it (its slice of y) and summed over "model"."""
+    d_loc = p.out_proj.shape[0]
+    if d_loc == y.shape[-1]:
+        return y @ p.out_proj.to(y.dtype)
+    _, idx = L._tp(mesh)
+    out = y[..., idx * d_loc:(idx + 1) * d_loc] @ p.out_proj.to(y.dtype)
+    return L.tp_reduce(out, mesh)
+
+
+def _enter(cfg: ModelConfig, p: Mamba2, x: torch.Tensor, mesh):
+    return (x if p.out_proj.shape[0] == mamba2_dims(cfg)[0]
+            else L.tp_enter(x, mesh))
+
+
+def mamba2_apply(cfg: ModelConfig, p: Mamba2, x_in: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
     """Full-sequence SSD. x_in: (B, S, D) -> (B, S, D) in x_in's type.
     ``S`` must be a multiple of the chunk ``min(cfg.ssm_chunk, S)``
-    (decode goes through :func:`mamba2_decode_step`)."""
+    (decode goes through :func:`mamba2_decode_step`). ``p`` split over
+    "model" (see the module's note) needs its DeviceMesh."""
     Bb, S, D = x_in.shape
     N = cfg.ssm_state
     Q = min(cfg.ssm_chunk, S)
@@ -163,6 +191,7 @@ def mamba2_apply(cfg: ModelConfig, p: Mamba2,
     d_inner, nheads, _ = mamba2_dims(cfg)
     hd = cfg.ssm_head_dim
     dt_ = x_in.dtype
+    x_in = _enter(cfg, p, x_in, mesh)
 
     proj = x_in @ p.in_proj.to(dt_)
     z, xs, Bm, Cm, dt = _split_proj(cfg, proj)
@@ -189,7 +218,7 @@ def mamba2_apply(cfg: ModelConfig, p: Mamba2,
     y = y + xh.reshape(Bb, S, nheads, hd) * p.D_skip[None, None, :, None]
     y = y.reshape(Bb, S, d_inner).to(dt_)
     y = y * silu(z)
-    return y @ p.out_proj.to(dt_)
+    return _out_proj(p, y, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +243,7 @@ def mamba2_cache_init(cfg: ModelConfig, batch: int, device=None):
 
 
 def mamba2_decode_step(cfg: ModelConfig, p: Mamba2, x_tok: torch.Tensor,
-                       cache: Dict[str, torch.Tensor]):
+                       cache: Dict[str, torch.Tensor], mesh=None):
     """One token. x_tok: (B, 1, D) -> ((B, 1, D), new cache). The new
     cache is returned, not written into ``cache``."""
     Bb = x_tok.shape[0]
@@ -222,6 +251,7 @@ def mamba2_decode_step(cfg: ModelConfig, p: Mamba2, x_tok: torch.Tensor,
     d_inner, nheads, _ = mamba2_dims(cfg)
     hd = cfg.ssm_head_dim
     dt_ = x_tok.dtype
+    x_tok = _enter(cfg, p, x_tok, mesh)
 
     proj = x_tok[:, 0, :] @ p.in_proj.to(dt_)
     z, xs, Bm, Cm, dt = _split_proj(cfg, proj)
@@ -242,5 +272,5 @@ def mamba2_decode_step(cfg: ModelConfig, p: Mamba2, x_tok: torch.Tensor,
     y = torch.einsum("bhpn,bn->bhp", state, Cm.to(F32))
     y = y + xh * p.D_skip[None, :, None]
     y = y.reshape(Bb, d_inner).to(dt_) * silu(z)
-    out = (y @ p.out_proj.to(dt_))[:, None, :]
+    out = _out_proj(p, y, mesh)[:, None, :]
     return out, {"state": state, "conv": window[:, 1:, :]}

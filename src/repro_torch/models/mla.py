@@ -18,6 +18,14 @@ latent space with ``W_uk`` and ``W_uv`` absorbed into the query and the
 output (:func:`_mla_attend_absorbed`). MLA never takes the flash kernel,
 as in the reference. The decode cache is written in place (the reference
 returns an updated copy).
+
+Under tensor parallelism (``layers.tp_weights`` on a DeviceMesh whose
+"model" axis divides the heads) each rank holds its heads' columns of
+``wq``, ``w_uk`` and ``w_uv`` and their rows of ``wo``; the latent
+``w_dkv`` and the shared RoPE key ``w_kr`` stay whole, so every rank
+projects and caches the whole latent and attends with its own heads,
+in prefill and in the absorbed decode alike, and the ranks' outputs are
+summed.
 """
 
 from __future__ import annotations
@@ -42,10 +50,12 @@ class MLA(nn.Module):
     AXES = {"wq": ("embed", "qheads"), "w_dkv": ("embed", "kv_lora"),
             "w_kr": ("embed", "kvheads"), "w_uk": ("kv_lora", "qheads"),
             "w_uv": ("kv_lora", "qheads"), "wo": ("qheads", "embed")}
+    TP_PARTIAL = ("w_dkv", "w_kr")
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         D, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+        self.n_heads = H
         qk_n, qk_r, v_h = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
         dt = L.dtype_of(cfg.param_dtype)
         self.wq = L.empty_weight((D, H * (qk_n + qk_r)), dt, device)
@@ -54,6 +64,9 @@ class MLA(nn.Module):
         self.w_uk = L.empty_weight((r, H * qk_n), dt, device)
         self.w_uv = L.empty_weight((r, H * v_h), dt, device)
         self.wo = L.empty_weight((H * v_h, D), dt, device)
+
+    def splits(self, tp: int) -> bool:
+        return self.n_heads % tp == 0
 
     def init_(self, generator: torch.Generator) -> None:
         for w in (self.wq, self.w_dkv, self.w_kr, self.w_uk, self.w_uv,
@@ -120,14 +133,19 @@ def _mla_attend_absorbed(cfg: ModelConfig, p: MLA, q_nope, q_rope, c_all,
 def mla_apply(cfg: ModelConfig, p: MLA, x: torch.Tensor,
               positions: torch.Tensor, *,
               cache: Optional[Dict[str, torch.Tensor]] = None,
-              cache_index: Optional[int] = None):
+              cache_index: Optional[int] = None, mesh=None):
     """x (B, S, D) -> (out (B, S, D), cache). With ``cache`` = {"c_kv":
     (B, Smax, r), "k_rope": (B, Smax, qk_rope)}, one decode step against
     the latent cache: the S new tokens are written at ``cache_index`` in
-    place and attention sees the first ``cache_index + S`` entries."""
+    place and attention sees the first ``cache_index + S`` entries.
+    ``p`` split over "model" (see the module's note) runs the rank's
+    heads; ``mesh`` is then the DeviceMesh."""
     B, S, D = x.shape
-    H = cfg.n_heads
     qk_n, qk_r, v_h = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    H = p.wq.shape[-1] // (qk_n + qk_r)
+    split = H != cfg.n_heads
+    if split:
+        x = L.tp_enter(x, mesh)
     dt = x.dtype
 
     q = (x @ p.wq.to(dt)).reshape(B, S, H, qk_n + qk_r)
@@ -145,12 +163,13 @@ def mla_apply(cfg: ModelConfig, p: MLA, x: torch.Tensor,
         out = _mla_attend_absorbed(cfg, p, q_nope, q_rope,
                                    cache["c_kv"].to(dt),
                                    cache["k_rope"].to(dt), kv_len=i + S)
-        return out @ p.wo.to(dt), cache
-
-    k_nope = (c_kv @ p.w_uk.to(dt)).reshape(B, S, H, qk_n)
-    v = (c_kv @ p.w_uv.to(dt)).reshape(B, S, H, v_h)
-    out = _mla_attend(q_nope, q_rope, k_nope, k_rope, v, causal=cfg.causal)
-    return out.reshape(B, S, H * v_h) @ p.wo.to(dt), cache
+    else:
+        k_nope = (c_kv @ p.w_uk.to(dt)).reshape(B, S, H, qk_n)
+        v = (c_kv @ p.w_uv.to(dt)).reshape(B, S, H, v_h)
+        out = _mla_attend(q_nope, q_rope, k_nope, k_rope, v,
+                          causal=cfg.causal).reshape(B, S, H * v_h)
+    out = out @ p.wo.to(dt)
+    return (L.tp_reduce(out, mesh) if split else out), cache
 
 
 def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, device=None):

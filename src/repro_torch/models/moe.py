@@ -29,7 +29,9 @@ Two choices keep the port's routing equal to the reference's:
   experts, the all-to-all back and a float32 combine). On a mesh of one
   card, where the reference's trainer runs its MoE layers, the
   all-to-alls are identities; across the ranks of a ``DeviceMesh`` they
-  are ``all_to_all_single`` on the "model" group.
+  are ``all_to_all_single`` on the "model" group, whose backward is the
+  reverse exchange, and each rank holds only its ``E / ep`` experts'
+  stacks (the reference's ``P(ep_axis, None, None)``).
 
 Two runs of a model in bf16 that round at other points (two packages,
 flash and plain attention, decode and prefill) reach a router with
@@ -51,6 +53,7 @@ from ..configs.base import ModelConfig
 from . import layers as L
 
 __all__ = ["MoE", "router_topk", "moe_apply_dense", "moe_apply_ep",
+           "ep_body", "ep_capacity", "local_experts",
            "EP_COUNTS", "ROUTING_MARGIN", "ROUTING_FLIP_SHARE",
            "routing_margin", "same_routing", "check_flip_share"]
 
@@ -70,6 +73,8 @@ class MoE(nn.Module):
             "w_gate": ("experts", "embed", "mlp_e"),
             "w_up": ("experts", "embed", "mlp_e"),
             "w_down": ("experts", "mlp_e", "embed")}
+    # the router routes this rank's block of the tokens only
+    TP_PARTIAL = ("router",)
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -192,7 +197,8 @@ def ep_body(cfg: ModelConfig, p: MoE, x: torch.Tensor, idx: int, ep: int,
     """One rank's share of the expert-parallel MoE (the reference's
     ``_ep_shard_fn``): x (T, D), the rank's tokens -> (T, D) in x's type.
     ``idx`` is the rank's index on the expert axis, whose ``ep`` ranks
-    hold ``E / ep`` experts each (this rank experts ``idx * E_loc`` on);
+    hold ``E / ep`` experts each: ``p`` holds the router and this rank's
+    expert stacks, (E / ep, D, F) from expert ``idx * E_loc`` on;
     ``exchange(t)`` is the all-to-all of that axis, sending the i-th of
     ``ep`` equal row blocks of ``t`` to rank i and returning the blocks
     received, in rank order.
@@ -243,10 +249,8 @@ def ep_body(cfg: ModelConfig, p: MoE, x: torch.Tensor, idx: int, ep: int,
     order = torch.argsort(rlid, stable=True)
     inv = torch.argsort(order, stable=True)
     gs = torch.bincount(rlid, minlength=E_loc + 1)[:E_loc]
-    e0 = idx * E_loc
-    y = _local_expert_ffn(recv[order], gs, p.w_gate[e0:e0 + E_loc],
-                          p.w_up[e0:e0 + E_loc],
-                          p.w_down[e0:e0 + E_loc])[inv]
+    y = _local_expert_ffn(recv[order], gs, p.w_gate, p.w_up,
+                          p.w_down)[inv]
     back = exchange(y)
     y_assign = back[slot] * keep[:, None].to(back.dtype)
     y_tok = (y_assign.to(F32).reshape(T, K, D)
@@ -254,17 +258,42 @@ def ep_body(cfg: ModelConfig, p: MoE, x: torch.Tensor, idx: int, ep: int,
     return y_tok.to(x.dtype)
 
 
-def _all_to_all(group):
-    """The all-to-all of one process group as an ``exchange`` for
-    :func:`ep_body`."""
-    import torch.distributed as dist
+class _Exchange(torch.autograd.Function):
+    """``all_to_all_single`` of equal blocks over a group; its backward is
+    the reverse exchange, which for equal blocks is the same one."""
 
-    def exchange(t: torch.Tensor) -> torch.Tensor:
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed as dist
+        ctx.group = group
         out = torch.empty_like(t)
         dist.all_to_all_single(out, t.contiguous(), group=group)
         return out
 
-    return exchange
+    @staticmethod
+    def backward(ctx, grad):
+        return _Exchange.apply(grad, ctx.group), None
+
+
+def _all_to_all(group):
+    """The all-to-all of one process group as an ``exchange`` for
+    :func:`ep_body` (differentiable)."""
+    return lambda t: _Exchange.apply(t, group)
+
+
+def local_experts(cfg: ModelConfig, p: MoE, mesh):
+    """The router and this rank's (E / ep, ...) expert stacks of ``p`` on
+    a DeviceMesh, ``sharding.partition.tp_local`` of each (a layer under
+    ``layers.tp_weights`` holds them already)."""
+    if p.w_gate.shape[0] != cfg.n_experts:
+        return p
+    from types import SimpleNamespace
+
+    from ..sharding.partition import tp_local
+    return SimpleNamespace(**{
+        k: tp_local(getattr(p, k), MoE.AXES[k], mesh,
+                    partial=k in MoE.TP_PARTIAL) for k in MoE.AXES})
+
 
 
 def moe_apply_ep(cfg: ModelConfig, p: MoE, x, mesh, *,
@@ -279,6 +308,9 @@ def moe_apply_ep(cfg: ModelConfig, p: MoE, x, mesh, *,
     size, rank ``r`` (in row-major order of the mesh) takes the r-th
     block of them, the all-to-alls run over the ``ep_axis`` group
     (``all_to_all_single``), and the result is a DTensor placed as x.
+    Where ``ep_axis`` has one rank, x may instead be this rank's own
+    block of the tokens, a plain (T, D) tensor, and so is the result: its
+    body runs on that tensor as on one card, gradients summed alike.
     ``capacity`` overrides :func:`ep_capacity`, as the reference's
     does."""
     from ..launch.mesh import check_mesh, is_ranked, mesh_shape
@@ -297,6 +329,13 @@ def moe_apply_ep(cfg: ModelConfig, p: MoE, x, mesh, *,
     if cfg.n_experts % ep:
         raise ValueError(f"{cfg.n_experts} experts do not split over "
                          f"{ep} ranks of {ep_axis!r}")
+    if not isinstance(x, DTensor):
+        if ep != 1:
+            raise ValueError(f"a plain tensor is one rank's own tokens, "
+                             f"for {ep_axis!r} of one rank, not {ep}")
+        return ep_body(cfg, local_experts(cfg, p, mesh), x, 0, 1,
+                       capacity or ep_capacity(cfg, x.shape[0], 1),
+                       _all_to_all(mesh.get_group(ep_axis)))
     n_total = mesh.size()
     N, D = x.shape
     pad = (-N) % n_total
@@ -310,7 +349,8 @@ def moe_apply_ep(cfg: ModelConfig, p: MoE, x, mesh, *,
         x_loc = xg[flat * t_loc:(flat + 1) * t_loc]
     else:
         x_loc = x.redistribute(mesh, by_all).to_local()
-    y_loc = ep_body(cfg, p, x_loc, mesh.get_local_rank(ep_axis), ep,
+    y_loc = ep_body(cfg, local_experts(cfg, p, mesh), x_loc,
+                    mesh.get_local_rank(ep_axis), ep,
                     capacity or ep_capacity(cfg, t_loc, ep),
                     _all_to_all(mesh.get_group(ep_axis)))
     y = DTensor.from_local(y_loc, mesh, by_all, run_check=False,

@@ -18,6 +18,11 @@ leading ``n_layers`` dim as the reference's; its size does not depend on
 ``max_len``. ``decode_step`` writes it in place (the reference returns an
 updated copy) and returns it. No Pallas kernel lies on this path in the
 reference, and no CUDA kernel of the port does.
+
+Across the ranks of a DeviceMesh each rank runs its block of the batch
+rows, the embedding and head split by vocabulary over "model" and each
+Mamba2 layer's ``out_proj`` by rows (``lm.py``'s note, ``mamba2.py``'s),
+and :func:`loss_fn` is the global masked mean.
 """
 
 from __future__ import annotations
@@ -92,28 +97,41 @@ def abstract_init(cfg: ModelConfig) -> SSMLM:
     return SSMLM(cfg, device="meta")
 
 
-def mamba_layer(cfg: ModelConfig, lp: SSMBlock,
-                h: torch.Tensor) -> torch.Tensor:
-    return h + M.mamba2_apply(cfg, lp.mamba, lp.norm(h))
+def mamba_layer(cfg: ModelConfig, lp: SSMBlock, h: torch.Tensor,
+                mesh=None) -> torch.Tensor:
+    return h + M.mamba2_apply(cfg, lp.mamba, lp.norm(h), mesh)
 
 
 def forward_train(cfg: ModelConfig, lm: SSMLM, batch: Dict, mesh=None,
                   remat: str = "none") -> torch.Tensor:
     """Logits (B, S, vocab) in the compute type, recording gradients for
     whichever weights require them, each layer under
-    ``lm.remat_apply``."""
+    ``lm.remat_apply``; across the ranks of a DeviceMesh the whole logits
+    on every rank."""
     LMmod.check_remat(remat)
     if L.ranked(mesh):
-        return L.rows_across_ranks(
-            lm, mesh, lambda: lm.embed[batch["tokens"]].to(
-                L.dtype_of(cfg.compute_dtype)), lm.layers,
-            lambda lp, h: mamba_layer(cfg, lp, h),
-            lambda h: LMmod._head(cfg, lm, lm.norm_f(h)))
+        logits, _ = forward_rows(cfg, lm, batch, mesh, remat)
+        return L.gather_rows(logits, mesh, batch["tokens"].shape[0])
     h = lm.embed[batch["tokens"]].to(L.dtype_of(cfg.compute_dtype))
     for lp in lm.layers:
         h = LMmod.remat_apply(lambda h, lp=lp: mamba_layer(cfg, lp, h), h,
                               remat)
     return LMmod._head(cfg, lm, lm.norm_f(h))
+
+
+def forward_rows(cfg: ModelConfig, lm: SSMLM, batch: Dict, mesh,
+                 remat: str = "none"):
+    """Across the ranks of a DeviceMesh: (this rank's rows' logits, those
+    rows of the batch)."""
+    tokens = batch["tokens"]
+    rows = L.batch_rows(tokens.shape[0], mesh)
+    with L.tp_weights(lm, mesh, skip=("layers",)):
+        h = LMmod.embed_tokens(cfg, lm.embed, tokens[rows], mesh)
+        for lp in lm.layers:
+            h = LMmod.remat_apply(L.tp_body(
+                lp, mesh, lambda lp, h: mamba_layer(cfg, lp, h, mesh)), h,
+                remat)
+        return LMmod._head(cfg, lm, lm.norm_f(h), mesh), rows
 
 
 @torch.no_grad()
@@ -127,9 +145,11 @@ def forward(cfg: ModelConfig, lm: SSMLM, batch: Dict, mesh=None,
 
 def loss_fn(cfg: ModelConfig, lm: SSMLM, batch: Dict, mesh=None,
             remat: str = "none") -> torch.Tensor:
-    """Mean next-token cross entropy of ``batch`` (tokens, labels); raises
-    across the ranks of a DeviceMesh (ROADMAP A10b.7b)."""
-    L.no_ranks(mesh)
+    """Mean next-token cross entropy of ``batch`` (tokens, labels); across
+    the ranks of a DeviceMesh the global mean over every rank's rows."""
+    if L.ranked(mesh):
+        logits, rows = forward_rows(cfg, lm, batch, mesh, remat)
+        return LMmod.ranked_loss(logits, rows, batch, mesh)
     return LMmod.cross_entropy(forward_train(cfg, lm, batch, mesh, remat),
                                batch["labels"])
 
@@ -146,13 +166,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
 
 
 def decode_layers(cfg: ModelConfig, layers, cache: Dict[str, torch.Tensor],
-                  h: torch.Tensor, first: int = 0) -> torch.Tensor:
+                  h: torch.Tensor, first: int = 0, mesh=None) -> torch.Tensor:
     """One token through ``layers``, whose caches are rows ``first``,
     ``first + 1``, ... of ``cache``; each new state and conv tail is
     written into its row."""
     for i, lp in enumerate(layers, start=first):
-        out, new = M.mamba2_decode_step(
-            cfg, lp.mamba, lp.norm(h), {k: c[i] for k, c in cache.items()})
+        with L.tp_weights(lp, mesh):
+            out, new = M.mamba2_decode_step(
+                cfg, lp.mamba, lp.norm(h), {k: c[i] for k, c in cache.items()},
+                mesh)
         for k, c in cache.items():
             c[i].copy_(new[k])
         h = h + out
@@ -166,18 +188,16 @@ def decode_step(cfg: ModelConfig, lm: SSMLM, cache: Dict[str, torch.Tensor],
     is accepted for the interface: the state has no positions. Writes
     the new states into ``cache`` in place and returns (logits (B, 1,
     vocab), cache). Across the ranks of a DeviceMesh each rank steps its
-    batch rows (``layers.shard_act``), writes their states, and returns
+    batch rows (``layers.batch_rows``), writes their states, and returns
     the whole logits."""
-    if not L.ranked(mesh):
-        h = lm.embed[tokens].to(L.dtype_of(cfg.compute_dtype))
-        h = decode_layers(cfg, lm.layers, cache, h)
-        return LMmod._head(cfg, lm, lm.norm_f(h)), cache
-    with L.gathered_weights(lm, mesh):
-        ref = L.residual(lm.embed[tokens].to(L.dtype_of(cfg.compute_dtype)),
-                         mesh)
-        rows = L.local_rows(ref)
+    B = tokens.shape[0]
+    rows = L.batch_rows(B, mesh)
+    with L.tp_weights(lm, mesh, skip=("layers",)):
+        h = LMmod.embed_tokens(cfg, lm.embed, tokens[rows], mesh)
         h = decode_layers(cfg, lm.layers,
-                          {k: c[:, rows] for k, c in cache.items()},
-                          ref.to_local())
-        logits = LMmod._head(cfg, lm, lm.norm_f(h))
-    return L.rows_like(logits, ref).full_tensor(), cache
+                          {k: c[:, rows] for k, c in cache.items()}, h,
+                          mesh=mesh)
+        logits = LMmod._head(cfg, lm, lm.norm_f(h), mesh)
+    if L.ranked(mesh):
+        logits = L.gather_rows(logits, mesh, B)
+    return logits, cache

@@ -9,6 +9,12 @@ explicit ``torch.Generator``: its stream cannot equal ``jax.random``'s,
 so the two packages agree by property (error feedback converges), not
 value by value. As in the reference, the wire payload stays at the
 gradients' type; this validates the numerics.
+
+Across the ranks of a DeviceMesh a gradient is a DTensor. Its scale is the
+global one (each shard's max, then the max over the ranks), and its noise
+is drawn for the whole tensor from the step's generator on every rank,
+each rank taking its shard: the rounding of every element is the one a
+single card gives it, draw for draw.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 __all__ = ["init_error_state", "compress_decompress", "quantize_int8",
            "dequantize_int8"]
@@ -25,7 +32,10 @@ Tensors = Dict[str, torch.Tensor]
 
 def quantize_int8(x: torch.Tensor, generator: torch.Generator
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor scale, stochastic rounding. -> (int8 values, f32 scale)."""
+    """Per-tensor scale, stochastic rounding. -> (int8 values, f32 scale).
+    A DTensor gives a DTensor placed as ``x`` and the global scale."""
+    if isinstance(x, DTensor):
+        return _quantize_shards(x, generator)
     x32 = x.to(torch.float32)
     scale = torch.clamp_min(torch.max(torch.abs(x32)), 1e-12) / 127.0
     scaled = x32 / scale
@@ -34,12 +44,39 @@ def quantize_int8(x: torch.Tensor, generator: torch.Generator
     return q, scale
 
 
+def _quantize_shards(x: DTensor, generator: torch.Generator):
+    import torch.distributed as dist
+
+    from ..sharding.partition import place
+    mesh = x.device_mesh
+    x32 = x.to_local().to(torch.float32)
+    amax = torch.max(torch.abs(x32))
+    for i in range(mesh.ndim):
+        if mesh.size(i) > 1:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX,
+                            group=mesh.get_group(i))
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
+    scaled = x32 / scale
+    noise = torch.empty(x.shape, dtype=torch.float32,
+                        device=x32.device).uniform_(-0.5, 0.5,
+                                                    generator=generator)
+    noise = place(noise, mesh, x.placements).to_local()
+    q = torch.clamp(torch.round(scaled + noise), -127, 127).to(torch.int8)
+    return DTensor.from_local(q, mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride()), scale
+
+
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    if isinstance(q, DTensor):
+        return DTensor.from_local(q.to_local().to(torch.float32) * scale,
+                                  q.device_mesh, q.placements,
+                                  run_check=False, shape=q.shape,
+                                  stride=q.stride())
     return q.to(torch.float32) * scale
 
 
 def init_error_state(params: Tensors) -> Tensors:
-    return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return {k: torch.zeros_like(p, dtype=torch.float32)
             for k, p in params.items()}
 
 

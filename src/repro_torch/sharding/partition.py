@@ -18,7 +18,8 @@ entries (one per dim: ``None``, a mesh axis, or a tuple of them), and
 dimension: ``Shard(i)`` where the spec puts that mesh axis on tensor
 dim ``i``, ``Replicate()`` where it uses it nowhere. :func:`place` makes
 a DTensor of a global tensor that every rank holds, each rank keeping
-its own shard, with no communication.
+its own shard, with no communication. :func:`tp_local` reads the shard of
+a weight that one rank's tensor-parallel layer works on.
 """
 
 from __future__ import annotations
@@ -27,13 +28,13 @@ import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..launch.mesh import mesh_shape
 
 __all__ = ["PartitionRules", "make_rules", "logical_to_spec",
            "params_shardings", "batch_shardings", "cache_shardings",
-           "placements", "place"]
+           "placements", "place", "TP_NAMES", "tp_dim", "tp_local"]
 
 
 def _is_axes(t) -> bool:
@@ -179,3 +180,55 @@ def place(tensor: torch.Tensor, mesh, where: Tuple) -> DTensor:
     return DTensor.from_local(local.contiguous(), mesh, where,
                               run_check=False, shape=tensor.shape,
                               stride=tensor.stride())
+
+
+# logical dims that stay split over "model" when a layer's weights are
+# gathered, the reference's rule (first matching dim wins: expert weights
+# keep EP on the experts dim)
+TP_NAMES = ("experts", "qheads", "mlp", "vocab", "ssm_inner")
+
+
+def tp_dim(shape: Tuple[int, ...], axes: Tuple[str, ...],
+           tp: int) -> Optional[int]:
+    """The dim of a weight of ``shape`` and logical ``axes`` (a stacked
+    leaf's leading "layers" name dropped) that stays split over the
+    ``tp`` ranks of "model": the first named in ``TP_NAMES`` that ``tp``
+    divides; None if there is none, or ``tp`` is 1."""
+    ax = axes[1:] if axes and axes[0] == "layers" else axes
+    if tp == 1 or len(ax) != len(shape):
+        return None
+    for i, a in enumerate(ax):
+        if a in TP_NAMES and shape[i] % tp == 0:
+            return i
+    return None
+
+
+def tp_local(w: torch.Tensor, axes: Tuple[str, ...], mesh, *,
+             split: bool = True, partial: bool = False) -> torch.Tensor:
+    """The part of weight ``w`` (a DTensor on ``mesh``, or a plain tensor
+    every rank holds whole) that this rank's tensor-parallel layer works
+    on: split over "model" on :func:`tp_dim` where ``split``, whole
+    otherwise.
+
+    A DTensor is redistributed to that placement (the FSDP dims gathered
+    over the other axes, the reference's ``gather_weights``) and read as
+    the local tensor, with the placements its gradient takes back to the
+    weight: ``Partial`` over every axis but "model" (the ranks there work
+    on other rows of the batch); over "model" ``Shard`` of the split dim,
+    ``Partial`` where ``partial`` (a weight every rank holds whole but
+    whose output each rank uses in part, so its gradient is one rank's
+    share), ``Replicate`` otherwise (every rank uses it alike and gets
+    the whole gradient). A plain tensor gives its chunk."""
+    shape = mesh_shape(mesh)
+    tp = shape.get("model", 1)
+    d = tp_dim(tuple(w.shape), axes, tp) if split else None
+    if not isinstance(w, DTensor):
+        if d is None:
+            return w
+        return torch.chunk(w, tp, dim=d)[mesh.get_local_rank("model")]
+    where = tuple(Shard(d) if a == "model" and d is not None else Replicate()
+                  for a in shape)
+    grads = tuple(Partial() if a != "model" else
+                  Shard(d) if d is not None else
+                  Partial() if partial else Replicate() for a in shape)
+    return w.redistribute(mesh, where).to_local(grad_placements=grads)

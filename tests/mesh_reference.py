@@ -6,8 +6,8 @@ ranks, on four forced host devices (pytest collects nothing here).
 reads ``DIR/inputs.npz`` (written by the test) and writes every
 reference output to ``DIR/ref.npz``: ``repro``'s ``moe_apply_ep`` at
 the config's capacity, its tensor-parallel ``flash_sdpa``, the reduced
-models' forwards and decode steps, and its four-stage GPipe schedule,
-on the meshes of ``torch_ranks.MESHES``.
+models' forwards and decode steps, reduced llama3-8b's loss, and its
+four-stage GPipe schedule, on the meshes of ``torch_ranks.MESHES``.
 """
 
 import dataclasses
@@ -94,6 +94,12 @@ def main(out_dir: str) -> None:
                                  jnp.int32(t))
             steps.append(np.asarray(logits))
         out[f"{arch}/decode"] = np.stack(steps)
+
+    cfg = _f32("llama3-8b")
+    tokens = jnp.asarray(flat["llama3-8b/tokens"])
+    out["train/loss_fn"] = build_model(cfg).loss_fn(
+        _tree(flat, "llama3-8b/params/"),
+        {"tokens": tokens, "labels": jnp.roll(tokens, -1, axis=1)}, mesh)
 
     W, x = jnp.asarray(flat["pipe/W"]), jnp.asarray(flat["pipe/x"])
 

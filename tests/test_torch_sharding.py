@@ -538,9 +538,44 @@ def test_forward_with_placed_weights_is_bitwise(runs, arch):
                                   r[f"{arch}/forward"])
 
 
-def test_training_across_ranks_waits_for_its_slice(runs):
-    said = runs[1][0]["train_raises"]
-    assert len(said) == 2 and all("A10b.7b" in s for s in said), said
+def test_training_across_ranks_gives_the_reference_loss(runs):
+    """On 2 x 2, ``api.loss_fn`` on placed weights and the first step of
+    ``build_train_step`` run across the ranks and give the loss of
+    ``repro``'s ``loss_fn`` on its mesh within 1e-5, on every rank."""
+    _, ranks, want = runs
+    for r in ranks:
+        for k in ("train/loss_fn", "train/step_loss"):
+            assert abs(r[k] - float(want["train/loss_fn"])) <= 1e-5, k
+        assert r["train/mesh_is_kept"]
+
+
+# ---------------------------------------------------------------------------
+# what a tensor-parallel layer materialises
+# ---------------------------------------------------------------------------
+
+def test_ep_body_receives_the_ranks_experts(runs):
+    """Reduced deepseek on 1 x 4: every ``ep_body`` call gets the rank's
+    (E / 4, D, F) expert stacks, not all E."""
+    E, D, F = runs[1][0]["c1/deepseek_dims"]
+    for r in runs[1]:
+        assert len(r["c1/ep_stacks"]) == 3          # one per layer
+        assert set(r["c1/ep_stacks"]) == {(E // 4, D, F)}
+
+
+def test_layer_gathers_the_tp_only_placement(runs):
+    """The bytes one llama3-8b layer all-gathers on 2 x 2 (FSDP x TP) are
+    each weight's FSDP gather to its TP-only placement: a weight split
+    over "model" arrives as half of it, and the layer as less than it
+    weighs whole."""
+    for r in runs[1]:
+        assert r["c1/gathered"] == r["c1/expected"] < r["c1/whole"]
+
+
+def test_no_weight_is_read_whole(runs):
+    """No parameter goes through ``DTensor.full_tensor`` in the placed
+    forwards (deepseek on 1 x 4, llama3-8b on 2 x 2)."""
+    for r in runs[1]:
+        assert r["c1/whole_reads"] == []
 
 
 # ---------------------------------------------------------------------------

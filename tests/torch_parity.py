@@ -27,7 +27,8 @@ from repro.core import acc_state as ref_acc
 from repro_torch.core.acc_state import flatten_checksums
 from repro_torch.optim import lr_schedule
 
-__all__ = ["update_checksum_atol", "assert_step_checksums"]
+__all__ = ["update_checksum_atol", "assert_step_checksums",
+           "assert_flat_checksums"]
 
 
 def update_checksum_atol(want: np.ndarray, tcfg, step: int) -> float:
@@ -42,9 +43,18 @@ def assert_step_checksums(got_c, want_c, tcfg, step: int) -> None:
     """The port's ``checksums`` of a train step against the reference's:
     the same leaves, parameters and optimizer state at ``rtol 1e-5,
     atol 1e-3``, updates at :func:`update_checksum_atol`."""
+    assert_flat_checksums(
+        {k: flatten_checksums(got_c[k]) for k in ("params", "opt", "updates")},
+        {k: ref_acc.flatten_checksums(want_c[k])
+         for k in ("params", "opt", "updates")}, tcfg, step)
+
+
+def assert_flat_checksums(got_c, want_c, tcfg, step: int) -> None:
+    """:func:`assert_step_checksums` of checksums already flattened: a
+    list per tree ("params", "opt", "updates") in the order of
+    ``jax.tree.leaves``."""
     for k in ("params", "opt", "updates"):
-        got = np.array(flatten_checksums(got_c[k]))
-        want = np.array(ref_acc.flatten_checksums(want_c[k]))
+        got, want = np.array(got_c[k]), np.array(want_c[k])
         assert got.shape == want.shape, k
         if k == "updates":
             np.testing.assert_allclose(
