@@ -11,6 +11,7 @@ with itself on the card.
     python3 chip_smoke.py --phases card,serve_vlm_audio # vlm and audio
     python3 chip_smoke.py --phases card,examples,mesh   # the example twins, ranks
     python3 chip_smoke.py --phases card,build,mesh,mesh_train  # across ranks
+    python3 chip_smoke.py --phases card,dryrun          # the multi-pod dry run
 
 Phases, each printing one JSON line:
 
@@ -155,6 +156,19 @@ Phases, each printing one JSON line:
            ends bitwise equal too. Prints the step seconds through the
            mesh beside the one-card step's (the first step, which sets up
            NCCL, apart) and the peak memory of each
+  dryrun   the multi-pod dry run (``python -m repro_torch.launch.dryrun
+           --all --mesh both`` in 8 spawned workers that see no card): all
+           62 cells of the ten archs on fake process groups of 256 and 512
+           ranks, rank 0's program on meta tensors, each OK, the 18 skips
+           the reference's reasons letter for letter; per cell the rank's
+           arguments plus its peak of live bytes in GB against one card's
+           80, its FLOPs and its collective bytes. Then the grounding:
+           llama3-8b at full width and depth, a plain-attention prefill of
+           2 x 4096 on a one-rank NCCL mesh, whose dry run on a fake group
+           of one must predict the bytes its placed weights and batch
+           allocate exactly, and its peak within a factor of 2; the dry
+           run's FLOPs over the measured seconds give its TFLOP/s beside
+           the card's 989 (dense bf16). Budget: 120 s
   train    the ADCC trainer (``ADCCTrainer.run``) at llama3-8b's full width
            with depth cut to 2 of 32 layers (1 where the disk cannot hold
            two slots), random weights from a seeded generator on the card,
@@ -237,7 +251,7 @@ from repro_torch.launch.steps import (build_train_step,  # noqa: E402
 from repro_torch.launch.train import ADCCTrainer  # noqa: E402
 from repro_torch.models.carry import (opt_tree, reference_tree,  # noqa: E402
                                       tree_items)
-from repro_torch.models import build_model, get_config  # noqa: E402
+from repro_torch.models import build_model, get_config, list_archs  # noqa: E402
 from repro_torch.configs.base import SHAPES  # noqa: E402
 from repro_torch.models import hybrid as hybrid_mod  # noqa: E402
 from repro_torch.models import layers as layers_mod  # noqa: E402
@@ -251,7 +265,7 @@ from repro_torch.scenarios import batched_engine, driver  # noqa: E402
 
 PHASES = ("card", "build", "kernels", "sweep", "sharded", "kv", "device",
           "serve", "serve_moe", "serve_ssm", "serve_vlm_audio", "examples",
-          "mesh", "mesh_train", "train")
+          "mesh", "mesh_train", "dryrun", "train")
 
 # tensor-core instructions counted in each kernel's SASS, and the kernels
 # that must have them: library -> (name in the kernel's symbol, kinds)
@@ -422,6 +436,31 @@ MESH_TRAIN_STEPS = {True: 4, False: 3}
 # the train phase: the ADCC trainer at llama3-8b's full width with depth
 # cut to 2 of 32 layers (1 where the disk cannot hold two slots of 2),
 # AdamW, remat "dots", batch 2 x the train_4k sequence length
+# the dry run (repro_torch.launch.dryrun): every cell of both production
+# meshes, run by the module's command line in spawned workers that see no
+# card, with the reference's skips (src/repro/launch/dryrun.py) held here
+# as literals; then one program of it grounded on the card
+DRYRUN_WORKERS = min(8, os.cpu_count() or 1)
+DRYRUN_BUDGET_S = 120.0
+DRYRUN_CELLS = 62
+_ENCODER_SKIP = "skip: encoder-only arch has no decode step"
+_FULL_ATTENTION_SKIP = ("skip: full-attention arch — 500k decode needs "
+                        "sub-quadratic attention (DESIGN.md §4)")
+DRYRUN_SKIPS = {("hubert-xlarge", "decode_32k"): _ENCODER_SKIP,
+                ("hubert-xlarge", "long_500k"): _ENCODER_SKIP,
+                **{(arch, "long_500k"): _FULL_ATTENTION_SKIP for arch in (
+                    "granite-8b", "phi4-mini-3.8b", "granite-3-8b",
+                    "llama3-8b", "deepseek-v2-lite-16b", "kimi-k2-1t-a32b",
+                    "qwen2-vl-2b")}}
+# the grounding: llama3-8b at full width and depth, plain-attention
+# prefill of 2 x 4096 on a one-rank mesh, predicted on a fake group of one
+GROUND_ARCH = "llama3-8b"
+GROUND_BATCH, GROUND_SEQ = 2, 4096
+GROUND_SEED = 24
+GROUND_PEAK_RATIO = (0.5, 2.0)
+# dense bf16 tensor-core peak of an H100 SXM, TFLOP/s (no sparsity)
+H100_BF16_TFLOPS = 989.0
+
 TRAIN_ARCH = "llama3-8b"
 TRAIN_LAYERS = (2, 1)
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096
@@ -3248,6 +3287,167 @@ def phase_mesh_train() -> None:
     emit({"phase": "mesh_train", "runs": runs})
 
 
+def _dryrun_sweep(out_dir: str) -> dict:
+    """``python -m repro_torch.launch.dryrun --all --mesh both`` in
+    DRYRUN_WORKERS spawned workers with no card visible, its output in a
+    log; every record checked: each run cell OK, each skip the
+    reference's reason."""
+    from repro_torch.launch.dryrun import MESH_NAMES
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    log = os.path.join(out_dir, "dryrun.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--mesh", "both", "--workers", str(DRYRUN_WORKERS), "--out",
+             out_dir], env=env, stdout=fh, stderr=subprocess.STDOUT,
+            text=True)
+        try:
+            rc = proc.wait(timeout=DRYRUN_BUDGET_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed at the phase's budget"
+    seconds = time.perf_counter() - t0
+    with open(log) as fh:
+        text = fh.read()
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith(("OK ", "SKIP ", "FAIL ", "done;", "# "))]
+    if rc != 0 or not lines or lines[-1] != "done; failures=0":
+        raise AssertionError(f"dry run: {rc} after {seconds:.1f} s:\n"
+                             + "\n".join(lines[-40:]) + text[-2000:])
+    n_ok = sum(ln.startswith("OK ") for ln in lines)
+    n_skip = sum(ln.startswith("SKIP ") for ln in lines)
+    if (n_ok, n_skip) != (DRYRUN_CELLS, len(DRYRUN_SKIPS) * 2):
+        raise AssertionError(f"dry run: {n_ok} OK and {n_skip} SKIP lines")
+    cells = []
+    for arch in list_archs():
+        for shape in SHAPES:
+            for multi in (False, True):
+                path = os.path.join(
+                    out_dir, f"{arch}__{shape}__{MESH_NAMES[multi]}.json")
+                with open(path) as fh:
+                    rec = json.load(fh)
+                want = DRYRUN_SKIPS.get((arch, shape), "ok")
+                if rec["status"] != want:
+                    raise AssertionError(f"{arch} {shape} multi={multi}: "
+                                         f"{rec['status']!r}, not {want!r}")
+                if want != "ok":
+                    continue
+                ma = rec["memory_analysis"]
+                gb = (ma["argument_size_in_bytes"]
+                      + ma["temp_size_in_bytes"]) / 1e9
+                cells.append({"arch": arch, "shape": shape,
+                              "mesh": "multi" if multi else "single",
+                              "args_gb": ma["argument_size_in_bytes"] / 1e9,
+                              "temp_gb": ma["temp_size_in_bytes"] / 1e9,
+                              "gb": gb, "of_gb": 80,
+                              "fits": rec["fits_h100_80gb"],
+                              "flops": rec["cost_analysis"]["flops"],
+                              "coll_bytes": rec["collectives"]["total_bytes"],
+                              "trace_s": rec["trace_seconds"]})
+    for c in cells:
+        emit({"phase": "dryrun_cell", **c})
+    return {"ok": n_ok, "skip": n_skip, "seconds": seconds,
+            "fit": sum(c["fits"] for c in cells)}
+
+
+def _dryrun_ground() -> dict:
+    """The dry run of one program against the program on the card:
+    llama3-8b's plain prefill of 2 x 4096 on a one-rank mesh. Predicted on
+    a fake group of one rank (meta tensors), then run through NCCL on the
+    card: the argument bytes must equal what the placed weights and batch
+    allocate, exactly; the predicted peak over the measured one must lie
+    within GROUND_PEAK_RATIO; the predicted FLOPs over the measured
+    seconds give the achieved rate."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    cfg = get_config(GROUND_ARCH)
+    shape = ShapeConfig("prefill_2x4096", GROUND_SEQ, GROUND_BATCH,
+                        "prefill")
+    with dryrun.fake_group(1):
+        pred = dryrun.measure(dryrun.build_cell(
+            cfg, shape, make_mesh((1, 1), ("data", "model"))))
+    p_args = pred["memory_analysis"]["argument_size_in_bytes"]
+    p_peak = p_args + pred["memory_analysis"]["temp_size_in_bytes"]
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+        rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        api = build_model(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(GROUND_SEED)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        cell = dryrun.build_cell(
+            cfg, shape, mesh, init=lambda: api.init(gen),
+            specs=lambda t: torch.randint(0, cfg.vocab_size, tuple(t.shape),
+                                          dtype=t.dtype, device="cuda",
+                                          generator=gen))
+        torch.cuda.synchronize()
+        args = torch.cuda.memory_allocated() - base
+        cell.program()                  # first run: cuBLAS's set-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = cell.program()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        finite = bool(torch.isfinite(out).all())
+        del out, cell
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    ground = {"arch": GROUND_ARCH, "batch": GROUND_BATCH, "seq": GROUND_SEQ,
+              "args_predicted": p_args, "args_allocated": args,
+              "peak_predicted": p_peak, "peak_measured": peak,
+              "peak_ratio": p_peak / peak, "seconds": seconds,
+              "flops_predicted": pred["cost_analysis"]["flops"],
+              "tflops_achieved": pred["cost_analysis"]["flops"]
+              / seconds / 1e12, "tflops_peak_bf16": H100_BF16_TFLOPS,
+              "collectives_predicted": pred["collectives"]["counts"]}
+    if args != p_args:
+        raise AssertionError(f"predicted {p_args} argument bytes; the placed "
+                             f"weights and batch allocate {args}")
+    lo, hi = GROUND_PEAK_RATIO
+    if not lo <= ground["peak_ratio"] <= hi:
+        raise AssertionError(f"predicted peak {p_peak} over measured {peak} "
+                             f"= {ground['peak_ratio']:.3f}, outside "
+                             f"[{lo}, {hi}]: the live-bytes tracker is off")
+    if not finite:
+        raise AssertionError("the grounding prefill's logits are not finite")
+    return ground
+
+
+def phase_dryrun() -> None:
+    """The multi-pod dry run's every cell, and one of its programs
+    grounded on the card."""
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        sweep_line = _dryrun_sweep(out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    ground = _dryrun_ground()
+    seconds = time.perf_counter() - t0
+    emit({"phase": "dryrun", "sweep": sweep_line, "ground": ground,
+          "seconds": seconds, "budget_s": DRYRUN_BUDGET_S})
+    if seconds > DRYRUN_BUDGET_S:
+        raise AssertionError(f"the dryrun phase took {seconds:.1f} s, over "
+                             f"its budget of {DRYRUN_BUDGET_S} s")
+
+
 def phase_train() -> None:
     """The ADCC trainer through its entry point at llama3-8b's full width:
     uninterrupted, crashed-and-recovered from a torn slot, and the
@@ -3467,6 +3667,8 @@ def main() -> None:
         phase_mesh(records)
     if "mesh_train" in want:
         phase_mesh_train()
+    if "dryrun" in want:
+        phase_dryrun()
     if "train" in want:
         phase_train()
     if want != list(PHASES):

@@ -3,8 +3,10 @@
 The JAX package's ``launch/specs.py::make_batch`` for every family, drawn
 from an explicit ``torch.Generator`` on the generator's device. The
 audio and vlm families' frontends are stubs, as in the reference:
-``frames`` and ``patches`` arrive as precomputed embeddings. The dry-run
-stand-ins (``batch_specs``, ``decode_specs``) come with ROADMAP A11.
+``frames`` and ``patches`` arrive as precomputed embeddings.
+:func:`batch_specs` and :func:`decode_specs` give the dry run's
+stand-ins: tensors on the ``meta`` device (shapes and types, no storage),
+the counterparts of the reference's ``jax.ShapeDtypeStruct`` leaves.
 """
 
 from __future__ import annotations
@@ -15,9 +17,9 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 
-__all__ = ["make_batch", "vlm_split"]
+__all__ = ["make_batch", "batch_specs", "decode_specs", "vlm_split"]
 
 
 def vlm_split(cfg: ModelConfig, seq: int) -> Tuple[int, int]:
@@ -78,3 +80,39 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int,
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), **kw)
     labels = torch.randint(0, cfg.vocab_size, (batch, seq), **kw)
     return {"tokens": tokens, "labels": labels}
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """The train or prefill batch of ``shape`` (global batch B, sequence
+    S) on the ``meta`` device, leaf for leaf as the reference's: tokens
+    and labels (B, S) int32; audio frames (B, S, d_model) float32; vlm
+    tokens (B, S - P), patches (B, P, d_model) float32, positions
+    (3, B, S) int32 and labels (B, S)."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def spec(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if cfg.family == "audio":
+        return {"frames": spec((B, S, cfg.d_model), torch.float32),
+                "labels": spec((B, S))}
+    if cfg.family == "vlm":
+        p, t = vlm_split(cfg, S)
+        return {"tokens": spec((B, t)),
+                "patches": spec((B, p, cfg.d_model), torch.float32),
+                "positions": spec((3, B, S)),
+                "labels": spec((B, S))}
+    return {"tokens": spec((B, S)), "labels": spec((B, S))}
+
+
+def decode_specs(cfg: ModelConfig, shape: ShapeConfig, init_cache
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict, torch.Tensor]:
+    """(token specs, cache specs, pos spec) of one decode step of
+    ``shape``: tokens (B, 1) int32, the cache ``init_cache(B, S,
+    device="meta")`` gives (a family's ``init_cache(cfg, ...)`` with the
+    config bound), and a 0-d int32 position, all on ``meta``."""
+    B, S = shape.global_batch, shape.seq_len
+    cache, _ = init_cache(B, S, device="meta")
+    tokens = torch.empty((B, 1), dtype=torch.int32, device="meta")
+    pos = torch.empty((), dtype=torch.int32, device="meta")
+    return {"tokens": tokens}, cache, pos

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import math
 from typing import Dict, Iterator
 
 import torch
@@ -136,18 +137,17 @@ def _compute_copy(lm: nn.Module) -> nn.Module:
     the compute type where the reference's ``to_compute`` casts their
     leaf (per-layer parameters, and others of two or more dimensions),
     every parameter a leaf that requires grad, placed as ``lm``'s (a
-    DTensor as a DTensor). Values are filled by the step."""
-    cfg = lm.cfg
-    cdt = L.dtype_of(cfg.compute_dtype)
-    out = type(lm)(cfg, device="meta")
+    DTensor as a DTensor). Values are filled by the step. The modules are
+    copied with each parameter replaced by its new one (``deepcopy``'s
+    memo), so no other tensor is made, not even on ``meta``."""
+    cdt = L.dtype_of(lm.cfg.compute_dtype)
+    memo = {}
     for name, p in lm.named_parameters():
         cast = p.dtype == torch.float32 and (name.startswith("layers.")
                                              or p.ndim >= 2)
-        mod, _, attr = name.rpartition(".")
-        setattr(out.get_submodule(mod) if mod else out, attr,
-                nn.Parameter(torch.empty_like(
-                    p, dtype=cdt if cast else p.dtype).detach()))
-    return out
+        memo[id(p)] = nn.Parameter(torch.empty_like(
+            p, dtype=cdt if cast else p.dtype).detach())
+    return copy.deepcopy(lm, memo)
 
 
 def place_model(lm: nn.Module, rules: PartitionRules) -> nn.Module:
@@ -198,6 +198,10 @@ def place_opt_state(tcfg: TrainConfig, rules: PartitionRules, state,
         for path, st in state.stats.items()})
 
 
+def _contiguous_stride(shape) -> tuple:
+    return tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+
+
 def _stack(parts):
     """A stacked leaf's layers as one tensor; DTensors stack shard by
     shard, the leading layers dim replicated."""
@@ -209,7 +213,7 @@ def _stack(parts):
         torch.stack([p.to_local() for p in parts]), first.device_mesh,
         tuple(Shard(q.dim + 1) if isinstance(q, Shard) else q
               for q in first.placements), run_check=False, shape=shape,
-        stride=torch.empty(shape, device="meta").stride())
+        stride=_contiguous_stride(shape))
 
 
 def _unstack(t):
@@ -218,7 +222,7 @@ def _unstack(t):
     where = tuple(Shard(q.dim - 1) if isinstance(q, Shard) else q
                   for q in t.placements)
     shape = tuple(t.shape[1:])
-    stride = torch.empty(shape, device="meta").stride()
+    stride = _contiguous_stride(shape)
     return [DTensor.from_local(x, t.device_mesh, where, run_check=False,
                                shape=shape, stride=stride)
             for x in t.to_local().unbind(0)]

@@ -15,7 +15,9 @@ lies on this path.
 
 The decode cache is ``{"attn": {"k", "v"} (n_segments, B, max_len, KV,
 hd), "ssm": {"state", "conv"} (n_layers, ...)}``; ``decode_step`` writes
-it in place and returns it.
+it in place and returns it. Across ranks a cache placed by the partition
+rules may hold only the rank's KV heads and SSM heads, and only its
+chunk of the positions (``layers.local_rows``, ``layers.seq_split``).
 
 Across the ranks of a DeviceMesh each rank runs its block of the batch
 rows; the shared block's attention and SwiGLU, the Mamba2 layers'
@@ -100,10 +102,10 @@ def abstract_init(cfg: ModelConfig) -> HybridLM:
 
 def _shared_block_apply(cfg: ModelConfig, sp: SharedBlock, h: torch.Tensor,
                         positions: torch.Tensor, cache=None,
-                        cache_index=None, mesh=None):
+                        cache_index=None, mesh=None, cache_seq=None):
     attn_out, new_cache = L.attention_apply(
         cfg, sp.attn, sp.norm_attn(h), positions, cache=cache,
-        cache_index=cache_index, mesh=mesh)
+        cache_index=cache_index, mesh=mesh, cache_seq=cache_seq)
     h = h + attn_out
     h = h + L.swiglu_apply(sp.ffn, sp.norm_ffn(h), mesh)
     return h, new_cache
@@ -139,7 +141,8 @@ def forward_rows(cfg: ModelConfig, lm: HybridLM, batch: Dict, mesh,
     tokens = batch["tokens"]
     rows = L.batch_rows(tokens.shape[0], mesh)
     with L.tp_weights(lm, mesh, skip=("layers",)):
-        h = LMmod.embed_tokens(cfg, lm.embed, tokens[rows], mesh)
+        h = LMmod.embed_tokens(cfg, lm.embed, L.local_rows(tokens, rows),
+                               mesh)
         B, S = h.shape[:2]
         positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
         for start, length in segments(cfg):
@@ -201,15 +204,18 @@ def decode_step(cfg: ModelConfig, lm: HybridLM, cache: Dict, tokens:
     B = tokens.shape[0]
     rows = L.batch_rows(B, mesh)
     with L.tp_weights(lm, mesh, skip=("layers",)):
-        h = LMmod.embed_tokens(cfg, lm.embed, tokens[rows], mesh)
-        ssm = {k: c[:, rows] for k, c in cache["ssm"].items()}
+        h = LMmod.embed_tokens(cfg, lm.embed, L.local_rows(tokens, rows),
+                               mesh)
+        ssm = {k: L.local_rows(c, rows, 1) for k, c in cache["ssm"].items()}
+        seq = L.seq_split(cache["attn"]["k"], 2)
         positions = torch.full((h.shape[0], 1), pos, dtype=torch.int32,
                                device=h.device)
         for si, (start, length) in enumerate(segments(cfg)):
-            site = {name: c[si][rows] for name, c in cache["attn"].items()}
+            site = {name: L.local_rows(c, rows, 1)[si]
+                    for name, c in cache["attn"].items()}
             h, _ = _shared_block_apply(cfg, lm.shared, h, positions,
                                        cache=site, cache_index=pos,
-                                       mesh=mesh)
+                                       mesh=mesh, cache_seq=seq)
             h = SSM.decode_layers(cfg, lm.layers[start:start + length],
                                   ssm, h, first=start, mesh=mesh)
         logits = LMmod._head(cfg, lm, lm.norm_f(h), mesh)

@@ -44,6 +44,7 @@ __all__ = ["RMSNorm", "rmsnorm", "rope_freqs", "apply_rope", "apply_mrope",
            "ranked", "shard_act", "gather_weights", "tp_weights",
            "tp_body", "tp_enter", "tp_reduce", "tp_gather", "dp_reduce",
            "batch_rows", "rows_of", "rows_split", "gather_rows", "rows_like",
+           "local_rows", "seq_split",
            "heads_tile", "kv_heads", "flash_sdpa", "flash_tp_body",
            "flash_applicable", "Attention", "attention_apply",
            "attention_body",
@@ -324,6 +325,44 @@ def rows_like(local: torch.Tensor, ref: DTensor,
                               shape=shape, stride=stride)
 
 
+def local_rows(x: torch.Tensor, rows: slice, dim: int = 0) -> torch.Tensor:
+    """This rank's rows (on ``dim``) of a batch or cache leaf. A DTensor
+    placed by the partition rules (``sharding.partition.batch_shardings``,
+    ``cache_shardings``: the batch dim split over the data axes as
+    :func:`batch_rows` splits it) holds them as its local tensor, and
+    any other dim it splits stays split; a plain tensor that every rank
+    holds whole gives its ``rows``."""
+    if not isinstance(x, DTensor):
+        return x[(slice(None),) * dim + (rows,)]
+    local = x.to_local()
+    n = len(range(*rows.indices(x.shape[dim])))
+    if local.shape[dim] != n:
+        raise ValueError(f"a leaf placed as {x.placements} holds "
+                         f"{local.shape[dim]} rows on dim {dim}; this rank "
+                         f"runs {n}")
+    return local
+
+
+def seq_split(x: torch.Tensor, dim: int) -> Optional[Tuple[int, object]]:
+    """(first position, process group) of a cache leaf ``x`` whose
+    sequence dim ``dim`` a DTensor splits over one mesh axis (the
+    partition rules' ``shard_cache_seq``: each rank holds its chunk of the
+    positions, ``torch.chunk``'s); None for a leaf that holds them all."""
+    if not isinstance(x, DTensor):
+        return None
+    mesh = x.device_mesh
+    axes = [d for d, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim == dim and mesh.size(d) > 1]
+    if not axes:
+        return None
+    if len(axes) > 1:
+        raise NotImplementedError(f"a cache sequence split over {len(axes)} "
+                                  f"mesh axes")
+    d = axes[0]
+    chunk = -(-x.shape[dim] // mesh.size(d))
+    return mesh.get_coordinate()[d] * chunk, mesh.get_group(d)
+
+
 def empty_weight(shape: Tuple[int, ...], dtype: torch.dtype,
                  device) -> nn.Parameter:
     """A weight without values (serving: no gradient)."""
@@ -494,8 +533,21 @@ def flash_applicable(cfg: ModelConfig, q_heads: int, seq: int,
 # GQA attention
 # --------------------------------------------------------------------------
 
+def _split_softmax(logits: torch.Tensor, group) -> torch.Tensor:
+    """Softmax over a last dim whose entries are split over the ranks of
+    ``group``: the maximum and the sum of the exponentials are reduced
+    over the group (no gradient: decode only)."""
+    import torch.distributed as dist
+    m = logits.amax(dim=-1, keepdim=True)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    e = torch.exp(logits - m)
+    total = e.sum(dim=-1, keepdim=True)
+    dist.all_reduce(total, group=group)
+    return e / total
+
+
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-          kv_len: Optional[int] = None) -> torch.Tensor:
+          kv_len: Optional[int] = None, group=None) -> torch.Tensor:
     """Grouped dot-product attention, the plain branch of the reference.
 
     q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd). Logits and softmax in
@@ -504,7 +556,10 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     Prefill/train repeats the KV heads up to H; decode (``kv_len`` given)
     groups the query heads instead and never repeats the cache.
     ``kv_len``: valid prefix of k/v. (The reference's ``q_pos0`` offset
-    has no caller and is left out.)
+    has no caller and is left out.) ``group``: decode over a cache whose
+    positions are split over the ranks of this process group (k/v hold
+    the rank's chunk): the softmax and the product with v are summed
+    over the group.
     """
     B, Sq, H, hd = q.shape
     KV, Sk = k.shape[2], k.shape[1]
@@ -525,13 +580,17 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
         kpos = torch.arange(Sk, device=q.device)
         logits.masked_fill_(kpos[None, :] > qpos[:, None], NEG_INF)
     if kv_len is not None:
-        logits[..., kv_len:] = NEG_INF
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        logits[..., max(kv_len, 0):] = NEG_INF
+    probs = (torch.softmax(logits, dim=-1) if group is None
+             else _split_softmax(logits, group)).to(q.dtype)
     del logits
     if grouped:
         out = torch.einsum("bkgqs,bskh->bqkgh", probs.to(f32), v.to(f32))
     else:
         out = torch.einsum("bhqs,bshd->bqhd", probs.to(f32), v.to(f32))
+    if group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(out, group=group)
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
@@ -569,7 +628,8 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                     mrope_positions: Optional[torch.Tensor] = None,
                     cache: Optional[Dict[str, torch.Tensor]] = None,
                     cache_index: Optional[int] = None,
-                    mesh=None, flash: bool = False):
+                    mesh=None, flash: bool = False,
+                    cache_seq: Optional[Tuple[int, object]] = None):
     """Full attention. q and k turn by M-RoPE over ``mrope_positions``
     (3, B, S) where ``cfg.mrope_sections``, not at all for the audio
     family, by RoPE over ``positions`` (B, S) otherwise. With ``cache``
@@ -577,7 +637,8 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     with S new tokens, ``cache_index`` the write position. The cache is
     updated in place (the reference returns an updated copy) and
     returned. With ``flash`` the prefill takes the flash kernel where the
-    reference would. Returns (out, cache).
+    reference would. ``cache_seq`` is :func:`seq_split` of a cache that
+    holds this rank's chunk of the positions. Returns (out, cache).
 
     Under :func:`tp_weights` on a DeviceMesh whose "model" axis splits the
     heads, ``p`` holds this rank's columns of ``wq`` and rows of ``wo``:
@@ -592,7 +653,7 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     out, cache = attention_body(
         cfg, p, tp_enter(x, mesh) if split else x, positions, rank=idx,
         tp=tp, mrope_positions=mrope_positions, cache=cache,
-        cache_index=cache_index, flash=take_flash)
+        cache_index=cache_index, flash=take_flash, cache_seq=cache_seq)
     return (tp_reduce(out, mesh) if split else out), cache
 
 
@@ -600,14 +661,18 @@ def attention_body(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                    positions: Optional[torch.Tensor], *, rank: int = 0,
                    tp: int = 1, mrope_positions: Optional[torch.Tensor] = None,
                    cache: Optional[Dict[str, torch.Tensor]] = None,
-                   cache_index: Optional[int] = None, flash: bool = False):
+                   cache_index: Optional[int] = None, flash: bool = False,
+                   cache_seq: Optional[Tuple[int, object]] = None):
     """One rank's attention under tensor parallelism over ``tp`` ranks
     (the whole layer at ``tp`` 1): ``p.wq`` holds the columns of query
     heads ``rank * H / tp`` on and ``p.wo`` their rows; ``wk`` / ``wv``
-    are whole, so every KV head is projected (and cached) and the rank's
-    heads attend over the KV heads they read (:func:`kv_heads`), through
-    the flash kernel (:func:`flash_tp_body`) where ``flash``. Returns
-    (the rank's share of the output, which the ranks sum; cache)."""
+    are whole, so every KV head is projected and the rank's heads attend
+    over the KV heads they read (:func:`kv_heads`), through the flash
+    kernel (:func:`flash_tp_body`) where ``flash``. A decode cache holds
+    every KV head, or only the rank's (a cache split by heads over
+    "model"), and every position, or the chunk from ``cache_seq[0]`` on
+    (the softmax then reduced over ``cache_seq[1]``). Returns (the rank's
+    share of the output, which the ranks sum; cache)."""
     B, S, D = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
@@ -627,11 +692,19 @@ def attention_body(cfg: ModelConfig, p: Attention, x: torch.Tensor,
 
     if cache is not None:
         i = int(cache_index)
-        cache["k"][:, i:i + S] = k.to(cache["k"].dtype)
-        cache["v"][:, i:i + S] = v.to(cache["v"].dtype)
-        out = _sdpa(q, cache["k"][:, :, kv0:kv0 + n_kv],
-                    cache["v"][:, :, kv0:kv0 + n_kv], causal=False,
-                    kv_len=i + S)
+        heads = slice(kv0, kv0 + n_kv)
+        if cache["k"].shape[2] != KV:
+            # the cache holds this rank's KV heads only
+            k, v, heads = k[:, :, heads], v[:, :, heads], slice(None)
+        lo, group = cache_seq if cache_seq is not None else (0, None)
+        a, b = max(i, lo), min(i + S, lo + cache["k"].shape[1])
+        if a < b:
+            cache["k"][:, a - lo:b - lo] = k[:, a - i:b - i].to(
+                cache["k"].dtype)
+            cache["v"][:, a - lo:b - lo] = v[:, a - i:b - i].to(
+                cache["v"].dtype)
+        out = _sdpa(q, cache["k"][:, :, heads], cache["v"][:, :, heads],
+                    causal=False, kv_len=i + S - lo, group=group)
     elif flash:
         out = flash_tp_body(q, k, v, rank, tp, causal=True)
     else:

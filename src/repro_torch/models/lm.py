@@ -41,8 +41,9 @@ the cache index, as the reference's does.
 mesh``). With a mesh the moe family's layers take the expert-parallel
 path with its capacity drops, as the reference's do. Across the ranks of
 a ``DeviceMesh`` every rank passes the same batch and the same weights
-(plain tensors, or DTensors placed by the partition rules), and each
-rank runs its block of the batch rows (``layers.batch_rows``) through
+(plain tensors, or DTensors placed by the partition rules: a placed
+batch or cache leaf is read as the rank's share, ``layers.local_rows``),
+and each rank runs its block of the batch rows (``layers.batch_rows``) through
 layers that are tensor parallel over "model" (``layers.tp_weights``):
 the embedding table is split by vocabulary rows (a masked local lookup,
 the ranks' rows summed), attention by heads (the flash prefill launches
@@ -191,10 +192,11 @@ def _layer_apply(cfg: ModelConfig, lp: Block, h: torch.Tensor,
                  cache: Optional[Dict[str, torch.Tensor]] = None,
                  cache_index: Optional[int] = None, flash: bool = False,
                  mrope: Optional[torch.Tensor] = None,
-                 ref: Optional[DTensor] = None):
+                 ref: Optional[DTensor] = None, cache_seq=None):
     """One block on h (B, S, D). ``positions`` (B, S) drive RoPE,
     ``mrope`` (3, B, S) M-RoPE (vlm; ``positions`` is then None). Across
-    ranks h is the rank's rows of the batch, placed as ``ref`` says."""
+    ranks h is the rank's rows of the batch, placed as ``ref`` says;
+    ``cache_seq`` as ``layers.attention_apply`` takes it."""
     h_norm = lp.norm_attn(h)
     if cfg.use_mla:
         # MLA has no flash branch, in the reference as here
@@ -204,7 +206,8 @@ def _layer_apply(cfg: ModelConfig, lp: Block, h: torch.Tensor,
     else:
         attn_out, new_cache = L.attention_apply(
             cfg, lp.attn, h_norm, positions, mrope_positions=mrope,
-            cache=cache, cache_index=cache_index, mesh=mesh, flash=flash)
+            cache=cache, cache_index=cache_index, mesh=mesh, flash=flash,
+            cache_seq=cache_seq)
     h = h + attn_out
     h = h + _ffn_block(cfg, lp, lp.norm_ffn(h), mesh, ref)
     return h, new_cache
@@ -241,11 +244,15 @@ def _embed_batch(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
     batch's M-RoPE streams; otherwise the embedded tokens."""
     dt = L.dtype_of(cfg.compute_dtype)
     if cfg.family == "vlm":
-        text = embed_tokens(cfg, lm.embed, batch["tokens"][rows], mesh)
-        h = torch.cat([batch["patches"][rows].to(dt), text], dim=1)
-        return h, None, batch["positions"][:, rows]
-    h = (batch["frames"][rows].to(dt) if cfg.family == "audio"
-         else embed_tokens(cfg, lm.embed, batch["tokens"][rows], mesh))
+        text = embed_tokens(cfg, lm.embed,
+                            L.local_rows(batch["tokens"], rows), mesh)
+        h = torch.cat([L.local_rows(batch["patches"], rows).to(dt), text],
+                      dim=1)
+        return h, None, L.local_rows(batch["positions"], rows, 1)
+    h = (L.local_rows(batch["frames"], rows).to(dt)
+         if cfg.family == "audio" else
+         embed_tokens(cfg, lm.embed, L.local_rows(batch["tokens"], rows),
+                      mesh))
     B, S = h.shape[:2]
     return h, torch.arange(S, device=h.device)[None, :].expand(B, S), None
 
@@ -398,7 +405,8 @@ def ranked_loss(logits: torch.Tensor, rows: slice, batch: Dict,
     if rows == slice(None) and any(n > 1 for n in dp):
         raise ValueError(f"a batch of {_batch_size(batch)} rows does not "
                          f"split over data axes of sizes {dp}")
-    return cross_entropy(logits, batch["labels"][rows], mesh=mesh)
+    return cross_entropy(logits, L.local_rows(batch["labels"], rows),
+                         mesh=mesh)
 
 
 def loss_fn(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
@@ -444,19 +452,24 @@ def decode_step(cfg: ModelConfig, lm: LM, cache: Dict[str, torch.Tensor],
     pos = int(pos)
     B = tokens.shape[0]
     rows = L.batch_rows(B, mesh)
+    seq = L.seq_split(next(iter(cache.values())), 2)
+    if seq is not None and cfg.use_mla:
+        raise NotImplementedError("latent attention over a cache whose "
+                                  "positions are split across ranks")
     with L.tp_weights(lm, mesh, skip=("layers",)):
-        h = embed_tokens(cfg, lm.embed, tokens[rows], mesh)
+        h = embed_tokens(cfg, lm.embed, L.local_rows(tokens, rows), mesh)
         ref = L.rows_of(h, mesh, B) if ranked else None
         positions = torch.full((h.shape[0], 1), pos, dtype=torch.int32,
                                device=h.device)
         mrope = (positions[None].expand(3, h.shape[0], 1)
                  if cfg.mrope_sections else None)
         for i, lp in enumerate(lm.layers):
-            layer_cache = {name: c[i][rows] for name, c in cache.items()}
+            layer_cache = {name: L.local_rows(c, rows, 1)[i]
+                           for name, c in cache.items()}
             with L.tp_weights(lp, mesh):
                 h, _ = _layer_apply(cfg, lp, h, positions, mesh,
                                     cache=layer_cache, cache_index=pos,
-                                    mrope=mrope, ref=ref)
+                                    mrope=mrope, ref=ref, cache_seq=seq)
         logits = _head(cfg, lm, lm.norm_f(h), mesh)
     if ranked:
         logits = L.gather_rows(logits, mesh, B)

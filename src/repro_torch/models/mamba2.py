@@ -245,13 +245,23 @@ def mamba2_cache_init(cfg: ModelConfig, batch: int, device=None):
 def mamba2_decode_step(cfg: ModelConfig, p: Mamba2, x_tok: torch.Tensor,
                        cache: Dict[str, torch.Tensor], mesh=None):
     """One token. x_tok: (B, 1, D) -> ((B, 1, D), new cache). The new
-    cache is returned, not written into ``cache``."""
+    cache is returned, not written into ``cache``. A state that holds
+    only this rank's heads (a cache split by heads over "model", with
+    ``p.out_proj`` split by its rows) is stepped for those heads, whose
+    columns of the inner activations are the rank's slice of
+    ``out_proj``'s rows."""
     Bb = x_tok.shape[0]
     N = cfg.ssm_state
     d_inner, nheads, _ = mamba2_dims(cfg)
     hd = cfg.ssm_head_dim
     dt_ = x_tok.dtype
     x_tok = _enter(cfg, p, x_tok, mesh)
+    h_loc = cache["state"].shape[1]
+    if h_loc != nheads and h_loc * hd != p.out_proj.shape[0]:
+        raise ValueError(f"a state of {h_loc} of {nheads} heads needs "
+                         f"out_proj split into {h_loc * hd} rows")
+    h0 = L._tp(mesh)[1] * h_loc if h_loc != nheads else 0
+    heads = slice(h0, h0 + h_loc)
 
     proj = x_tok[:, 0, :] @ p.in_proj.to(dt_)
     z, xs, Bm, Cm, dt = _split_proj(cfg, proj)
@@ -263,14 +273,17 @@ def mamba2_decode_step(cfg: ModelConfig, p: Mamba2, x_tok: torch.Tensor,
                                  p.conv_w.to(dt_)) + p.conv_b.to(dt_))
     xs, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
 
-    dt_h = nn.functional.softplus(dt.to(F32) + p.dt_bias)      # (B,H)
-    A = -torch.exp(p.A_log)
+    dt_h = nn.functional.softplus(dt.to(F32)[:, heads]
+                                  + p.dt_bias[heads])          # (B,H)
+    A = -torch.exp(p.A_log[heads])
     da = torch.exp(dt_h * A[None, :])                          # (B,H)
-    xh = xs.reshape(Bb, nheads, hd).to(F32)
+    xh = xs.reshape(Bb, nheads, hd)[:, heads].to(F32)
     state = (cache["state"] * da[:, :, None, None]
              + torch.einsum("bhp,bn,bh->bhpn", xh, Bm.to(F32), dt_h))
     y = torch.einsum("bhpn,bn->bhp", state, Cm.to(F32))
-    y = y + xh * p.D_skip[None, :, None]
-    y = y.reshape(Bb, d_inner).to(dt_) * silu(z)
-    out = _out_proj(p, y, mesh)[:, None, :]
+    y = y + xh * p.D_skip[heads][None, :, None]
+    cols = slice(h0 * hd, (h0 + h_loc) * hd)
+    y = y.reshape(Bb, h_loc * hd).to(dt_) * silu(z[:, cols])
+    out = (_out_proj(p, y, mesh) if h_loc == nheads else
+           L.tp_reduce(y @ p.out_proj.to(dt_), mesh))[:, None, :]
     return out, {"state": state, "conv": window[:, 1:, :]}

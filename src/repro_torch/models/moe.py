@@ -123,6 +123,12 @@ def moe_apply_dense(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ted,te->td", y.to(F32), combine).to(dt)
 
 
+def _host_count(t: torch.Tensor) -> int:
+    """A count read to the host; 0 for a tensor on the ``meta`` device,
+    which has no values (a dry run counts no drops)."""
+    return 0 if t.is_meta else int(t)
+
+
 def _local_expert_ffn(x_sorted: torch.Tensor, group_sizes: torch.Tensor,
                       wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
                       block_factor: float = 2.0) -> torch.Tensor:
@@ -161,7 +167,8 @@ def _local_expert_ffn(x_sorted: torch.Tensor, group_sizes: torch.Tensor,
     # the same operations in a forward pass and in its recomputation under
     # remat, whatever the counts hold (a read to the host, not a tensor
     # that accumulates)
-    EP_COUNTS["dropped"] += int(torch.clamp(group_sizes - cap, min=0).sum())
+    EP_COUNTS["dropped"] += _host_count(
+        torch.clamp(group_sizes - cap, min=0).sum())
     return torch.where(covered, y, 0.0).to(dt)
 
 
@@ -216,7 +223,8 @@ def ep_body(cfg: ModelConfig, p: MoE, x: torch.Tensor, idx: int, ep: int,
     it by :func:`_local_expert_ffn`, sends it back in place, and each
     token combines its ``K`` outputs in float32 with its router weights.
     The permutations are gathers, so a backward pass is deterministic on
-    the card."""
+    the card, and no shape depends on the routing, so the body also runs
+    on ``meta`` tensors (a dry run, which counts no drops)."""
     T, D = x.shape
     K = cfg.experts_per_token
     E_loc = cfg.n_experts // ep
@@ -233,22 +241,27 @@ def ep_body(cfg: ModelConfig, p: MoE, x: torch.Tensor, idx: int, ep: int,
     keep = rank < capacity
     slot = dest * capacity + torch.where(keep, rank, 0)
     tok = x[:, None, :].expand(T, K, D).reshape(n, D)            # repeat K
-    kept_slots = slot[keep]
-    send = x.new_zeros((ep * capacity, D))
-    send[kept_slots] = tok[keep]
-    send_lid = ids.new_full((ep * capacity,), E_loc)
-    send_lid[kept_slots] = lid[keep]
-    n_kept = int(keep.sum())
-    if n_kept < n:
-        overflow = torch.unique(dest[~keep]) * capacity
-        send[overflow] = 0.0
-        send_lid[overflow] = E_loc
+    # a dropped assignment writes into one trash row past the buffer, so
+    # that every shape here is independent of the routing
+    rows = ep * capacity
+    to = torch.where(keep, slot, rows)
+    send = x.new_zeros((rows + 1, D)).index_put((to,), tok)[:rows]
+    send_lid = ids.new_full((rows + 1,), E_loc).index_put(
+        (to,), lid)[:rows]
+    dropped = ~keep
+    # the first slot of each bucket that overflowed
+    hit = (nn.functional.one_hot(dest, ep).bool()
+           & dropped[:, None]).any(dim=0)
+    first = torch.zeros(rows, dtype=torch.bool, device=x.device)
+    first[::capacity] = hit
+    send = torch.where(first[:, None], 0.0, send).to(x.dtype)
+    send_lid = torch.where(first, E_loc, send_lid)
     EP_COUNTS["assignments"] += n
-    EP_COUNTS["dropped"] += n - n_kept
+    EP_COUNTS["dropped"] += _host_count(dropped.sum())
     recv, rlid = exchange(send), exchange(send_lid)
     order = torch.argsort(rlid, stable=True)
     inv = torch.argsort(order, stable=True)
-    gs = torch.bincount(rlid, minlength=E_loc + 1)[:E_loc]
+    gs = nn.functional.one_hot(rlid, E_loc + 1).sum(dim=0)[:E_loc]
     y = _local_expert_ffn(recv[order], gs, p.w_gate, p.w_up,
                           p.w_down)[inv]
     back = exchange(y)

@@ -126,7 +126,8 @@ def forward_rows(cfg: ModelConfig, lm: SSMLM, batch: Dict, mesh,
     tokens = batch["tokens"]
     rows = L.batch_rows(tokens.shape[0], mesh)
     with L.tp_weights(lm, mesh, skip=("layers",)):
-        h = LMmod.embed_tokens(cfg, lm.embed, tokens[rows], mesh)
+        h = LMmod.embed_tokens(cfg, lm.embed, L.local_rows(tokens, rows),
+                               mesh)
         for lp in lm.layers:
             h = LMmod.remat_apply(L.tp_body(
                 lp, mesh, lambda lp, h: mamba_layer(cfg, lp, h, mesh)), h,
@@ -193,10 +194,11 @@ def decode_step(cfg: ModelConfig, lm: SSMLM, cache: Dict[str, torch.Tensor],
     B = tokens.shape[0]
     rows = L.batch_rows(B, mesh)
     with L.tp_weights(lm, mesh, skip=("layers",)):
-        h = LMmod.embed_tokens(cfg, lm.embed, tokens[rows], mesh)
+        h = LMmod.embed_tokens(cfg, lm.embed, L.local_rows(tokens, rows),
+                               mesh)
         h = decode_layers(cfg, lm.layers,
-                          {k: c[:, rows] for k, c in cache.items()}, h,
-                          mesh=mesh)
+                          {k: L.local_rows(c, rows, 1)
+                           for k, c in cache.items()}, h, mesh=mesh)
         logits = LMmod._head(cfg, lm, lm.norm_f(h), mesh)
     if L.ranked(mesh):
         logits = L.gather_rows(logits, mesh, B)

@@ -595,3 +595,68 @@ def test_restore_elastic_is_bitwise(runs, writer, step):
             if k.startswith(prefix):
                 np.testing.assert_array_equal(
                     r[f"restore/{writer}/{k[len(prefix):]}"], v)
+
+
+# ---------------------------------------------------------------------------
+# batch and cache leaves placed by the partition rules (the dry run's
+# arguments), and the dry run's collectives against a real rank's
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,B", R.PLACED_CASES)
+def test_placed_cache_decode_equals_whole_cache(runs, arch, B):
+    """Decode steps of reduced models on a cache placed as the dry run
+    places it (each rank holds its rows, its KV heads and SSM heads, and
+    for a batch of 1 its chunk of the positions, whose softmax is then
+    reduced over "data") against the steps on a cache every rank holds
+    whole: 1e-5 in float32 (summation order only), on every rank."""
+    _, ranks, _ = runs
+    key = f"placed/{arch}/{B}"
+    cfg = _f32(arch)
+    L, dp, tp = R.DECODE_STEPS + 1, 2, 2
+    for r in ranks:
+        np.testing.assert_allclose(r[key + "/decode_placed"],
+                                   r[key + "/decode_whole"],
+                                   rtol=0, atol=MOE_TOL)
+    local = ranks[0][key + "/cache_local"]
+    k = local["attn/k"] if cfg.family == "hybrid" else local["k"]
+    rows, seq = (1, L // dp) if B == 1 else (B // dp, L)
+    assert k[1:] == (rows, seq, cfg.n_kv_heads // tp,
+                     cfg.resolved_head_dim)
+    if cfg.family == "hybrid":
+        heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+        assert local["ssm/state"][1:3] == (rows, heads // tp)
+
+
+@pytest.mark.parametrize("arch", sorted({a for a, B in R.PLACED_CASES
+                                         if B == R.FORWARD_SHAPE[0]}))
+def test_placed_batch_forward_is_bitwise(runs, arch):
+    """A token batch placed by the partition rules (each rank reads its
+    rows' shard) gives the forward of the batch every rank holds whole,
+    bit for bit."""
+    _, ranks, _ = runs
+    key = f"placed/{arch}/{R.FORWARD_SHAPE[0]}"
+    for r in ranks:
+        np.testing.assert_array_equal(r[key + "/forward_placed"],
+                                      r[key + "/forward_whole"])
+
+
+def test_dryrun_collectives_equal_gloo_rank(runs):
+    """The dry run of reduced llama3-8b's prefill on a (2, 2) fake group
+    (meta tensors, rank 0) records the collectives, counts and result
+    bytes by kind, that rank 0 of the real 4-rank gloo run issues, and
+    their number is the one ``CommDebugMode`` counts there."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    _, ranks, _ = runs
+    B, S = R.DRYRUN_SHAPE
+    with dryrun.fake_group(R.WORLD):
+        mesh = make_mesh((2, 2), ("data", "model"))
+        rec = dryrun.measure(dryrun.build_cell(
+            get_config("llama3-8b").reduced(),
+            ShapeConfig("t", S, B, "prefill"), mesh))
+    assert rec["collectives"] == ranks[0]["dryrun/collectives"]
+    assert sum(rec["collectives"]["counts"].values()) == \
+        ranks[0]["dryrun/comm_debug_total"]
+    assert rec["collectives"]["counts"]["all-reduce"] > 0
+    assert rec["collectives"]["bytes"]["all-gather"] > 0

@@ -45,6 +45,7 @@ FORWARD_ARCHS = ("llama3-8b", "kimi-k2-1t-a32b", "mamba2-130m",
 FORWARD_SHAPE = (4, 16)        # (B, S)
 DECODE_STEPS = 3
 PIPE_SHAPE = (8, 16, 6, 2)     # (L, D, n_micro, mb)
+DRYRUN_SHAPE = (4, 16)         # (B, S) of the dry run's gloo twin
 
 
 def _entry(rank: int, world: int, body: Callable, init_file: str,
@@ -366,6 +367,88 @@ def _restore_cases(mesh, out_dir) -> Dict:
     return out
 
 
+# the placed-leaf cases: (arch, decode batch); a batch of 1 puts the
+# cache's positions over "data", as the dry run's long_500k does
+PLACED_CASES = (("llama3-8b", 4), ("zamba2-1.2b", 4), ("zamba2-1.2b", 1))
+
+
+def _placed_cases(mesh, flat) -> Dict:
+    """Batch and cache leaves placed by the partition rules, as the dry
+    run places them, against the same steps on leaves every rank holds
+    whole: the prefill forward of a placed token batch, and decode steps
+    on a cache placed by ``dryrun.decode_rules`` (KV and SSM heads over
+    "model", and for a batch of 1 the positions over "data") with the
+    weights placed by the same rules."""
+    import copy
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import build_serve_step, place_model
+    from repro_torch.models import build_model
+    from repro_torch.models.carry import tree_items
+    from repro_torch.sharding.partition import (batch_shardings, make_rules,
+                                                place)
+    out = {}
+    L = DECODE_STEPS + 1
+    for arch, B in PLACED_CASES:
+        cfg = _f32(arch)
+        api = build_model(cfg)
+        lm = api.init(torch.Generator().manual_seed(3))
+        tokens = torch.from_numpy(flat[f"{arch}/tokens"])[:B]
+        key = f"placed/{arch}/{B}"
+        if B == FORWARD_SHAPE[0]:
+            batch = {"tokens": tokens}
+            where = batch_shardings(make_rules(mesh), batch)["tokens"]
+            out[key + "/forward_whole"] = _np(api.forward(lm, batch, mesh))
+            out[key + "/forward_placed"] = _np(api.forward(
+                lm, {"tokens": place(tokens, mesh, where)}, mesh))
+        cache, _ = api.init_cache(B, L)
+        whole = []
+        for t in range(DECODE_STEPS):
+            logits, cache = api.decode_step(lm, cache, tokens[:, t:t + 1],
+                                            t, mesh)
+            whole.append(_np(logits))
+        rules = dryrun.decode_rules(cfg, ShapeConfig("t", L, B, "decode"),
+                                    mesh)
+        placed_lm = place_model(copy.deepcopy(lm), rules)
+        step, info = build_serve_step(api, rules, batch=B, max_len=L)
+        cache = dryrun._placed(api.init_cache(B, L)[0], info["cache"], mesh)
+        out[key + "/cache_local"] = {
+            k: tuple(v.to_local().shape) for k, v in tree_items(cache)}
+        tok_where = batch_shardings(rules, {"t": tokens})["t"]
+        placed = []
+        for t in range(DECODE_STEPS):
+            logits, cache = step(placed_lm, cache, place(
+                tokens[:, t:t + 1].contiguous(), mesh, tok_where), t)
+            placed.append(_np(logits))
+        out[key + "/decode_whole"] = np.stack(whole)
+        out[key + "/decode_placed"] = np.stack(placed)
+    return out
+
+
+def _dryrun_cases(mesh) -> Dict:
+    """The dry run's program of reduced llama3-8b's prefill (``dryrun.
+    build_cell``) run for real on this rank: the collectives
+    ``dryrun.Collectives`` records, beside the number ``CommDebugMode``
+    counts."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model, get_config
+    cfg = get_config("llama3-8b").reduced()
+    api = build_model(cfg)
+    B, S = DRYRUN_SHAPE
+    cell = dryrun.build_cell(
+        cfg, ShapeConfig("t", S, B, "prefill"), mesh,
+        init=lambda: api.init(torch.Generator().manual_seed(4)),
+        specs=lambda t: torch.zeros(t.shape, dtype=t.dtype))
+    with CommDebugMode() as cdm, dryrun.Collectives() as col:
+        cell.program()
+    return {"dryrun/collectives": col.record(),
+            "dryrun/comm_debug_total": cdm.get_total_counts()}
+
+
 def sharding_body(rank: int, out_dir: str) -> Dict:
     """Every case of ``test_torch_sharding.py`` that needs ranks."""
     import repro_torch
@@ -384,6 +467,8 @@ def sharding_body(rank: int, out_dir: str) -> Dict:
         out.update(_pipeline_cases(flat))
         out.update(_shard_act_cases(meshes["2x2"]))
         out.update(_restore_cases(meshes["2x2"], out_dir))
+        out.update(_placed_cases(meshes["2x2"], flat))
+        out.update(_dryrun_cases(meshes["2x2"]))
     return out
 
 
