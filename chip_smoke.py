@@ -3084,7 +3084,8 @@ def _mesh_ep_layer() -> dict:
 def _ranked_equals_one_card(arch: str, B: int, S: int, seed: int, mesh,
                             flash_launches: int) -> dict:
     """``arch`` at full width and depth, seeded weights on the card: the
-    forward through ``mesh`` (a DeviceMesh of one rank) against the
+    forward through ``mesh`` (a DeviceMesh of one rank; its logits a
+    DTensor placed as the reference places them, read whole) against the
     one-card forward (the one-card mesh, whose moe layers take the same
     expert-parallel path) bit for bit."""
     dev = torch.device("cuda")
@@ -3122,6 +3123,7 @@ def _ranked_equals_one_card(arch: str, B: int, S: int, seed: int, mesh,
     if launches != {"abft_matmul": 0, "tile_sums": 0,
                     "flash_attention": flash_launches}:
         raise AssertionError(f"{arch} through the mesh launched {launches}")
+    ranked = ranked.full_tensor()
     if not torch.equal(ranked, one):
         raise AssertionError(f"{arch}: the forward through a one-rank mesh "
                              f"differs from the one-card forward by "
@@ -3402,7 +3404,7 @@ def _dryrun_ground() -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() - base
-        finite = bool(torch.isfinite(out).all())
+        finite = bool(torch.isfinite(out.to_local()).all())
         del out, cell
     finally:
         dist.destroy_process_group()

@@ -439,11 +439,18 @@ def _local_shape(t) -> Tuple[int, ...]:
     return tuple((t.to_local() if isinstance(t, DTensor) else t).shape)
 
 
-def rank_leaves(cell: Cell) -> Dict[str, Dict[str, Tuple[int, ...]]]:
+def rank_leaves(cell: Cell, result=None) -> Dict[str, Dict[str,
+                                                          Tuple[int, ...]]]:
     """Rank's local shape of every argument leaf, keyed by group and by
-    the reference's leaf path (a stacked layer leaf (n_layers, ...))."""
+    the reference's leaf path (a stacked layer leaf (n_layers, ...)); with
+    ``result``, what a prefill's or a decode step's program returned, also
+    that of its logits (group "outputs", leaf "logits"), placed as the
+    reference places them (``models.lm.place_logits``)."""
     cfg = cell.cfg
     out = {}
+    if result is not None and cell.shape.kind != "train":
+        logits = result[0] if isinstance(result, tuple) else result
+        out["outputs"] = {"logits": _local_shape(logits)}
     for group, tree in cell.arguments.items():
         if group == "params":
             tree = reference_tree(cfg, dict(tree.named_parameters()))

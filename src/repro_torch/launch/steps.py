@@ -348,7 +348,9 @@ def build_serve_step(api: ModelApi, rules=None, *, batch: int, max_len: int,
     """One-token decode step builder. Returns (serve_step, info), with
     ``serve_step(lm, cache, tokens, pos) -> (logits, cache)``: the port's
     ``decode_step``, which writes the cache in place (what the
-    reference's donation of the cache amounts to). ``rules``: ``None``,
+    reference's donation of the cache amounts to); across ranks its
+    logits are placed as the reference's ``out_shardings`` place them
+    (``models.lm.place_logits``). ``rules``: ``None``,
     a mesh (one card, or a ``DeviceMesh`` to serve across its ranks) or
     the ``PartitionRules`` of one. ``info`` holds the cache's shapes and
     logical axes, the parameters' axes, and with a mesh the placements

@@ -113,17 +113,15 @@ def _shared_block_apply(cfg: ModelConfig, sp: SharedBlock, h: torch.Tensor,
 
 def forward_train(cfg: ModelConfig, lm: HybridLM, batch: Dict, mesh=None,
                   remat: str = "none") -> torch.Tensor:
-    """Logits (B, S, vocab) in the compute type, recording gradients for
-    whichever weights require them. ``remat`` applies to the Mamba2
-    layers only, as in the reference (the shared block is not
-    rematerialised there). Across the ranks of a DeviceMesh the whole
-    logits on every rank."""
+    """Logits (B, S, vocab) in the compute type on one card, recording
+    gradients for whichever weights require them. ``remat`` applies to
+    the Mamba2 layers only, as in the reference (the shared block is not
+    rematerialised there). Across the ranks of a DeviceMesh,
+    :func:`forward_rows` gives each rank its block."""
     LMmod.check_remat(remat)
+    LMmod._one_card(mesh, "forward_train")
     tokens = batch["tokens"]
     B, S = tokens.shape
-    if L.ranked(mesh):
-        logits, _ = forward_rows(cfg, lm, batch, mesh, remat)
-        return L.gather_rows(logits, mesh, B)
     h = lm.embed[tokens].to(L.dtype_of(cfg.compute_dtype))
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     for start, length in segments(cfg):
@@ -137,7 +135,7 @@ def forward_train(cfg: ModelConfig, lm: HybridLM, batch: Dict, mesh=None,
 def forward_rows(cfg: ModelConfig, lm: HybridLM, batch: Dict, mesh,
                  remat: str = "none"):
     """Across the ranks of a DeviceMesh: (this rank's rows' logits, those
-    rows of the batch)."""
+    rows of the batch), as ``lm.forward_rows`` gives them."""
     tokens = batch["tokens"]
     rows = L.batch_rows(tokens.shape[0], mesh)
     with L.tp_weights(lm, mesh, skip=("layers",)):
@@ -159,8 +157,14 @@ def forward_rows(cfg: ModelConfig, lm: HybridLM, batch: Dict, mesh,
 def forward(cfg: ModelConfig, lm: HybridLM, batch: Dict, mesh=None,
             remat: str = "none") -> torch.Tensor:
     """Prefill forward: logits (B, S, vocab) in the compute type, without
-    gradients (``remat`` must be "none"; train through :func:`loss_fn`)."""
+    gradients (``remat`` must be "none"; train through :func:`loss_fn`);
+    across the ranks of a DeviceMesh a DTensor placed by
+    ``lm.place_logits``."""
     LMmod.check_remat(remat, grad=False)
+    if L.ranked(mesh):
+        logits, _ = forward_rows(cfg, lm, batch, mesh)
+        return LMmod.place_logits(cfg, logits, mesh,
+                                  batch["tokens"].shape[0])
     return forward_train(cfg, lm, batch, mesh)
 
 
@@ -170,7 +174,7 @@ def loss_fn(cfg: ModelConfig, lm: HybridLM, batch: Dict, mesh=None,
     the ranks of a DeviceMesh the global mean over every rank's rows."""
     if L.ranked(mesh):
         logits, rows = forward_rows(cfg, lm, batch, mesh, remat)
-        return LMmod.ranked_loss(logits, rows, batch, mesh)
+        return LMmod.ranked_loss(cfg, logits, rows, batch, mesh)
     return LMmod.cross_entropy(forward_train(cfg, lm, batch, mesh, remat),
                                batch["labels"])
 
@@ -199,7 +203,8 @@ def decode_step(cfg: ModelConfig, lm: HybridLM, cache: Dict, tokens:
     values into its own slot of ``cache["attn"]``, each Mamba2 layer its
     state into ``cache["ssm"]``, in place; returns (logits (B, 1,
     vocab), cache). Across the ranks of a DeviceMesh each rank steps its
-    batch rows, writes their caches, and returns the whole logits."""
+    batch rows, writes their caches, and returns the logits placed by
+    ``lm.place_logits``."""
     pos = int(pos)
     B = tokens.shape[0]
     rows = L.batch_rows(B, mesh)
@@ -220,5 +225,5 @@ def decode_step(cfg: ModelConfig, lm: HybridLM, cache: Dict, tokens:
                                   ssm, h, first=start, mesh=mesh)
         logits = LMmod._head(cfg, lm, lm.norm_f(h), mesh)
     if L.ranked(mesh):
-        logits = L.gather_rows(logits, mesh, B)
+        logits = LMmod.place_logits(cfg, logits, mesh, B)
     return logits, cache

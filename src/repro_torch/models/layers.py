@@ -42,9 +42,9 @@ from ..kernels.flash_attention.ops import flash_attention
 
 __all__ = ["RMSNorm", "rmsnorm", "rope_freqs", "apply_rope", "apply_mrope",
            "ranked", "shard_act", "gather_weights", "tp_weights",
-           "tp_body", "tp_enter", "tp_reduce", "tp_gather", "dp_reduce",
-           "batch_rows", "rows_of", "rows_split", "gather_rows", "rows_like",
-           "local_rows", "seq_split",
+           "tp_body", "tp_enter", "tp_reduce", "vocab_blocks",
+           "dp_reduce", "batch_rows", "rows_of", "rows_split", "rows_like",
+           "local_as", "local_rows", "seq_split",
            "heads_tile", "kv_heads", "flash_sdpa", "flash_tp_body",
            "flash_applicable", "Attention", "attention_apply",
            "attention_body",
@@ -187,7 +187,7 @@ def tp_body(module: nn.Module, mesh, fn):
 # the conjugate pair of a tensor-parallel block over "model": f at its
 # input (identity, the gradient summed over the ranks), g at its output
 # (the partial outputs summed, the gradient passed on); and the logits'
-# gather over the vocab split
+# re-blocking over the vocab split
 # --------------------------------------------------------------------------
 
 class _Enter(torch.autograd.Function):
@@ -217,22 +217,6 @@ class _Reduce(torch.autograd.Function):
         return grad, None
 
 
-class _Gather(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group, idx, n):
-        import torch.distributed as dist
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x, group=group)
-        ctx.lo, ctx.width = idx * x.shape[-1], x.shape[-1]
-        return torch.cat(parts, dim=-1)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad[..., ctx.lo:ctx.lo + ctx.width].contiguous(), None, \
-            None, None
-
-
 def _model_group(mesh):
     tp, _ = _tp(mesh)
     return mesh.get_group("model") if tp > 1 else None
@@ -252,12 +236,37 @@ def tp_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
     return x if group is None else _Reduce.apply(x, group)
 
 
-def tp_gather(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The last dim of a column-parallel output gathered over "model" in
-    rank order; the gradient of each rank's columns goes back to it."""
+def vocab_blocks(x: torch.Tensor, vocab: int, mesh) -> torch.Tensor:
+    """A column-parallel output over "model" (each rank's block of the
+    padded vocabulary's columns, ``x``) in the reference's layout of the
+    logits sliced to ``vocab``: where the TP degree divides ``vocab``,
+    its even split, ``vocab / tp`` columns a rank in rank order (each
+    rank sends the columns of its block that fall in another's by one
+    all-to-all; without a padding nothing moves); otherwise the whole
+    ``vocab`` on every rank (all-gathered, then sliced). No gradient
+    passes (the serving output)."""
+    import torch.distributed as dist
     tp, idx = _tp(mesh)
-    return x if tp == 1 else _Gather.apply(x, mesh.get_group("model"),
-                                           idx, tp)
+    group = mesh.get_group("model")
+    p = x.shape[-1]
+    if vocab % tp:
+        parts = [torch.empty_like(x) for _ in range(tp)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)[..., :vocab]
+    c = vocab // tp
+    if p == c:
+        return x
+
+    def cut(s: int, r: int) -> int:
+        # columns of rank s's padded block that rank r's even block holds
+        return max(0, min(s * p + p, r * c + c) - max(s * p, r * c))
+
+    send = [cut(idx, r) for r in range(tp)]
+    recv = [cut(s, idx) for s in range(tp)]
+    cols = x.movedim(-1, 0)[:sum(send)].contiguous()
+    out = cols.new_empty((c,) + tuple(cols.shape[1:]))
+    dist.all_to_all_single(out, cols, recv, send, group=group)
+    return out.movedim(0, -1)
 
 
 def dp_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -288,14 +297,21 @@ def batch_rows(n: int, mesh) -> slice:
     return slice(lo * m, (lo + 1) * m)
 
 
+def local_as(local: torch.Tensor, mesh, where: Tuple,
+             shape: Tuple[int, ...]) -> DTensor:
+    """The rank's ``local`` part of a global tensor of ``shape`` placed as
+    ``where`` says, as a DTensor (no check, nothing moves)."""
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local.contiguous(), mesh, where,
+                              run_check=False, shape=tuple(shape),
+                              stride=stride)
+
+
 def rows_of(local: torch.Tensor, mesh, n: int) -> DTensor:
     """This rank's rows ``local`` (:func:`batch_rows`) of a batch of ``n``
     as a DTensor placed as the batch's rows are."""
-    shape = (n,) + tuple(local.shape[1:])
-    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
-    return DTensor.from_local(local.contiguous(), mesh,
-                              _row_placements(mesh, n), run_check=False,
-                              shape=shape, stride=stride)
+    return local_as(local, mesh, _row_placements(mesh, n),
+                    (n,) + tuple(local.shape[1:]))
 
 
 def rows_split(rows: DTensor) -> bool:
@@ -308,21 +324,13 @@ def rows_split(rows: DTensor) -> bool:
                if mesh.mesh_dim_names[i] != "model")
 
 
-def gather_rows(local: torch.Tensor, mesh, n: int) -> torch.Tensor:
-    """The whole (n, ...) batch on every rank from each rank's rows."""
-    return rows_of(local, mesh, n).full_tensor()
-
-
 def rows_like(local: torch.Tensor, ref: DTensor,
               n: Optional[int] = None) -> DTensor:
     """The rank's rows ``local`` of a global tensor of ``n`` rows (default
     ``ref``'s) placed as ``ref``'s rows are; the trailing dims may differ
     from ``ref``'s."""
-    shape = (n or ref.shape[0],) + tuple(local.shape[1:])
-    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
-    return DTensor.from_local(local.contiguous(), ref.device_mesh,
-                              ref.placements, run_check=False,
-                              shape=shape, stride=stride)
+    return local_as(local, ref.device_mesh, ref.placements,
+                    (n or ref.shape[0],) + tuple(local.shape[1:]))
 
 
 def local_rows(x: torch.Tensor, rows: slice, dim: int = 0) -> torch.Tensor:

@@ -49,11 +49,17 @@ the embedding table is split by vocabulary rows (a masked local lookup,
 the ranks' rows summed), attention by heads (the flash prefill launches
 the kernel on the rank's heads), the FFN by its hidden columns, the MoE
 by experts with all-to-alls (``moe.moe_apply_ep``), and the head by
-vocabulary columns, whose logits are gathered over "model" (the rank's
-rows, ``B_loc x S x padded_vocab`` values of the compute type).
-:func:`forward` and :func:`decode_step` give every rank the whole
-logits; :func:`loss_fn` is the global masked mean, its numerator and its
-count summed over the data axes before the division.
+vocabulary columns: each rank computes its rows' logits for its block of
+the padded vocabulary's columns (``B_loc x S x padded_vocab / tp``
+values of the compute type) and never the whole vocabulary.
+:func:`forward` and :func:`decode_step` return the logits as a DTensor
+placed as the reference places them (:func:`place_logits`): rows split
+over the data axes as the batch's, the vocabulary split over "model" in
+even blocks where the TP degree divides it and whole otherwise; a caller
+that needs the whole logits calls ``.full_tensor()``. :func:`loss_fn` is
+the global masked mean of a vocab-parallel cross entropy
+(:func:`vocab_parallel_nll`), its numerator and its count summed over
+the data axes before the division.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
@@ -72,7 +78,7 @@ from . import mla as MLA
 from . import moe as MOE
 
 __all__ = ["LM", "Block", "check_ported", "abstract_init", "forward",
-           "forward_train", "forward_rows", "embed_tokens", "cross_entropy",
+           "forward_train", "forward_rows", "embed_tokens", "place_logits", "cross_entropy", "vocab_parallel_nll",
            "ranked_loss", "loss_fn", "init_cache",
            "decode_step", "REMAT", "check_remat", "remat_apply"]
 
@@ -266,17 +272,44 @@ def _tied(cfg: ModelConfig) -> bool:
 def _head(cfg: ModelConfig, lm: LM, h: torch.Tensor,
           mesh=None) -> torch.Tensor:
     """Logits of h. A head split over "model" by vocabulary columns
-    (``layers.tp_weights``) computes the rank's columns, and the columns
-    are gathered from the ranks."""
+    (``layers.tp_weights``) gives the rank's block of the padded
+    vocabulary's columns (its input passes ``layers.tp_enter``); a whole
+    head gives the logits sliced to ``cfg.vocab_size``."""
     w = lm.embed.T if _tied(cfg) else lm.head
-    split = w.shape[-1] != cfg.padded_vocab
-    if split:
-        h = L.tp_enter(h, mesh)
-    logits = h @ w.to(h.dtype)
-    if split:
-        logits = L.tp_gather(logits, mesh)
-    # tables are padded to cfg.padded_vocab
-    return logits[..., :cfg.vocab_size]
+    if w.shape[-1] == cfg.padded_vocab:
+        # tables are padded to cfg.padded_vocab
+        return (h @ w.to(h.dtype))[..., :cfg.vocab_size]
+    return L.tp_enter(h, mesh) @ w.to(h.dtype)
+
+
+def _vocab_split(cfg: ModelConfig, logits: torch.Tensor, mesh) -> bool:
+    """Whether ``logits`` (:func:`_head`) are the rank's block of a head
+    split over "model": a whole head at a TP degree above 1 gives
+    ``vocab_size`` columns, which never equal ``padded_vocab / tp``
+    (that degree would divide the padded table, and split it)."""
+    tp, _ = L._tp(mesh)
+    return tp > 1 and logits.shape[-1] * tp == cfg.padded_vocab
+
+
+def place_logits(cfg: ModelConfig, logits: torch.Tensor, mesh,
+                 n: int) -> DTensor:
+    """The serving output across the ranks of a DeviceMesh from this
+    rank's rows' ``logits`` (:func:`_head`) of a batch of ``n``, placed
+    as the reference places its logits: the rows as the batch's
+    (``Shard(0)`` over the data axes that split them), and over "model"
+    ``Shard(2)`` in even blocks of ``vocab_size / tp`` columns where the
+    TP degree divides the vocabulary or ``Replicate()`` of the whole
+    vocabulary otherwise (``layers.vocab_blocks``): the reference's
+    ``P(dp, None, "model" if vocab_size % tp == 0 else None)``."""
+    tp, _ = L._tp(mesh)
+    even = cfg.vocab_size % tp == 0
+    if _vocab_split(cfg, logits, mesh):
+        logits = L.vocab_blocks(logits, cfg.vocab_size, mesh)
+    where = tuple(Shard(logits.dim() - 1) if a == "model" and even else p
+                  for a, p in zip(mesh.mesh_dim_names,
+                                  L._row_placements(mesh, n)))
+    return L.local_as(logits, mesh, where, (n,) + tuple(logits.shape[1:-1])
+                      + (cfg.vocab_size,))
 
 
 # ---------------------------------------------------------------------------
@@ -320,16 +353,20 @@ def remat_apply(body, h: torch.Tensor, remat: str) -> torch.Tensor:
                                _save_projections))
 
 
+def _one_card(mesh, what: str) -> None:
+    if L.ranked(mesh):
+        raise ValueError(f"{what} runs on one card; across the ranks of a "
+                         f"DeviceMesh use forward_rows")
+
+
 def forward_train(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
                   remat: str = "none", flash: bool = False) -> torch.Tensor:
-    """Logits (B, S, vocab) in the compute type, recording gradients for
-    whichever weights require them, each layer under
-    :func:`remat_apply`. Across the ranks of a DeviceMesh every rank gets
-    the whole logits."""
+    """Logits (B, S, vocab) in the compute type on one card (``mesh`` None
+    or a mesh of one card), recording gradients for whichever weights
+    require them, each layer under :func:`remat_apply`. Across the ranks
+    of a DeviceMesh, :func:`forward_rows` gives each rank its block."""
     check_remat(remat)
-    if L.ranked(mesh):
-        logits, _ = forward_rows(cfg, lm, batch, mesh, remat, flash)
-        return L.gather_rows(logits, mesh, _batch_size(batch))
+    _one_card(mesh, "forward_train")
     h, positions, mrope = _embed_batch(cfg, lm, batch)
     for lp in lm.layers:
         h = remat_apply(lambda h, lp=lp: _layer_apply(
@@ -342,7 +379,9 @@ def forward_train(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
 def forward_rows(cfg: ModelConfig, lm: LM, batch: Dict, mesh,
                  remat: str = "none", flash: bool = False):
     """Across the ranks of a DeviceMesh (see the module's note): (this
-    rank's rows' logits (B_loc, S, vocab), those rows of the batch)."""
+    rank's rows' logits as :func:`_head` gives them, (B_loc, S,
+    padded_vocab / tp) where the head is split and (B_loc, S, vocab)
+    where it is whole; those rows of the batch)."""
     B = _batch_size(batch)
     rows = L.batch_rows(B, mesh)
     with L.tp_weights(lm, mesh, skip=("layers",)):
@@ -359,11 +398,15 @@ def forward_rows(cfg: ModelConfig, lm: LM, batch: Dict, mesh,
 def forward(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
             remat: str = "none", flash: bool = False) -> torch.Tensor:
     """Prefill forward: logits (B, S, vocab) in the compute type, without
-    gradients. With ``flash`` each layer's attention goes through the
-    flash kernel where the reference's would (causal config,
+    gradients; across the ranks of a DeviceMesh a DTensor placed by
+    :func:`place_logits`. With ``flash`` each layer's attention goes
+    through the flash kernel where the reference's would (causal config,
     S % 8 == 0). ``remat`` only matters where gradients are taken, so it
     must be ``"none"`` here; training goes through :func:`loss_fn`."""
     check_remat(remat, grad=False)
+    if L.ranked(mesh):
+        logits, _ = forward_rows(cfg, lm, batch, mesh, flash=flash)
+        return place_logits(cfg, logits, mesh, _batch_size(batch))
     return forward_train(cfg, lm, batch, mesh, flash=flash)
 
 
@@ -394,19 +437,92 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return num / torch.clamp_min(cnt, 1.0)
 
 
-def ranked_loss(logits: torch.Tensor, rows: slice, batch: Dict,
-                mesh) -> torch.Tensor:
+class _VocabNLL(torch.autograd.Function):
+    """Each row's negative log-likelihood from the rank's block of logits
+    (columns ``lo`` on; those at ``vocab`` and beyond are padding), the
+    max, the sum of exponentials and the gold logit all-reduced over
+    ``group``, in float32 of the block only. The backward recomputes the
+    block's softmax from the saved compute-type logits and ``lse``."""
+
+    @staticmethod
+    def _block(logits, lo, vocab):
+        x = logits.to(torch.float32)
+        cols = lo + torch.arange(x.shape[-1], device=x.device)
+        return x.masked_fill(cols >= vocab, float("-inf")) \
+            if lo + x.shape[-1] > vocab else x
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, vocab, group):
+        import torch.distributed as dist
+        p = logits.shape[-1]
+        x = _VocabNLL._block(logits, lo, vocab)
+        m = torch.amax(x, dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        s = torch.sum(torch.exp(x - m[..., None]), dim=-1)
+        dist.all_reduce(s, group=group)
+        lse = m + torch.log(s)
+        # the gold logit from the rank whose block holds the label's
+        # column, 0 elsewhere (a label of -100 is in no block)
+        ids = labels.reshape(-1).long() - lo
+        inside = (ids >= 0) & (ids < p)
+        ids = ids.clamp(0, p - 1)
+        rows = torch.arange(ids.shape[0], device=x.device)
+        gold = torch.where(inside, x.reshape(-1, p)[rows, ids], 0.0)
+        dist.all_reduce(gold, group=group)
+        ctx.save_for_backward(logits, lse, ids, inside)
+        ctx.lo, ctx.vocab = lo, vocab
+        return lse - gold.reshape(lse.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, ids, inside = ctx.saved_tensors
+        p = logits.shape[-1]
+        x = _VocabNLL._block(logits, ctx.lo, ctx.vocab)
+        grad = torch.exp(x - lse[..., None]) * g[..., None]
+        flat = grad.view(-1, p)
+        rows = torch.arange(ids.shape[0], device=flat.device)
+        flat[rows, ids] = flat[rows, ids] - torch.where(
+            inside, g.reshape(-1), 0.0)
+        return grad.to(logits.dtype), None, None, None, None
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                       vocab: int, mesh):
+    """:func:`_nll_terms` of logits whose vocabulary is split over "model":
+    ``logits`` (B_loc, S, padded_vocab / tp) is this rank's block of the
+    padded vocabulary's columns in rank order (:func:`_head`), ``labels``
+    (B_loc, S) its rows'.
+    The log-sum-exp and the gold logit are reduced over "model" (Megatron's
+    vocab-parallel cross entropy), so no rank holds the whole
+    vocabulary's logits; the padded columns enter neither, and labels of
+    -100 are left out. Returns (the masked sum, the count), float32, the
+    same on every rank of "model"."""
+    lo = L._tp(mesh)[1] * logits.shape[-1]
+    nll = _VocabNLL.apply(logits, labels, lo, vocab,
+                          mesh.get_group("model"))
+    mask = (labels != -100).to(torch.float32)
+    return torch.sum(nll * mask), torch.sum(mask)
+
+
+def ranked_loss(cfg: ModelConfig, logits: torch.Tensor, rows: slice,
+                batch: Dict, mesh) -> torch.Tensor:
     """The loss across the ranks of a DeviceMesh from this rank's rows'
-    ``logits`` (a family's ``forward_rows``): the global masked mean of
-    :func:`cross_entropy`. The DP degree must divide the batch: ranks
-    that held the same rows would count their gradients once each."""
+    ``logits`` (a family's ``forward_rows``): the global
+    masked mean of the cross entropy, vocab-parallel where the head is
+    split (:func:`vocab_parallel_nll`), :func:`cross_entropy` where it is
+    whole. The DP degree must divide the batch: ranks that held the same
+    rows would count their gradients once each."""
     from ..launch.mesh import mesh_shape
     dp = [n for a, n in mesh_shape(mesh).items() if a in ("pod", "data")]
     if rows == slice(None) and any(n > 1 for n in dp):
         raise ValueError(f"a batch of {_batch_size(batch)} rows does not "
                          f"split over data axes of sizes {dp}")
-    return cross_entropy(logits, L.local_rows(batch["labels"], rows),
-                         mesh=mesh)
+    labels = L.local_rows(batch["labels"], rows)
+    if not _vocab_split(cfg, logits, mesh):
+        return cross_entropy(logits, labels, mesh=mesh)
+    num, cnt = vocab_parallel_nll(logits, labels, cfg.vocab_size, mesh)
+    num, cnt = L.dp_reduce(num, mesh), L.dp_reduce(cnt, mesh)
+    return num / torch.clamp_min(cnt, 1.0)
 
 
 def loss_fn(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
@@ -414,10 +530,10 @@ def loss_fn(cfg: ModelConfig, lm: LM, batch: Dict, mesh=None,
     """Mean cross entropy of ``batch``'s logits against its labels (those
     of -100 left out) with plain attention, as the reference's (the flash
     kernel has no backward). Across the ranks of a DeviceMesh each rank
-    takes its rows and the mean is global (:func:`cross_entropy`)."""
+    takes its rows and the mean is global (:func:`ranked_loss`)."""
     if L.ranked(mesh):
         logits, rows = forward_rows(cfg, lm, batch, mesh, remat)
-        return ranked_loss(logits, rows, batch, mesh)
+        return ranked_loss(cfg, logits, rows, batch, mesh)
     logits = forward_train(cfg, lm, batch, mesh, remat=remat)
     return cross_entropy(logits, batch["labels"])
 
@@ -444,8 +560,9 @@ def decode_step(cfg: ModelConfig, lm: LM, cache: Dict[str, torch.Tensor],
     cache). The audio family is an encoder and raises ValueError; a vlm
     step embeds text and turns all three M-RoPE streams by ``pos``.
     Across the ranks of a DeviceMesh each rank steps its rows with
-    tensor-parallel layers, writes their caches, and returns the whole
-    logits."""
+    tensor-parallel layers, writes their caches, and returns the logits
+    placed by :func:`place_logits` (the rows whole where the batch does
+    not split over the data axes, as for a cache whose positions do)."""
     if cfg.family == "audio":
         raise ValueError("encoder-only architecture has no decode step")
     ranked = L.ranked(mesh)
@@ -472,5 +589,5 @@ def decode_step(cfg: ModelConfig, lm: LM, cache: Dict[str, torch.Tensor],
                                     mrope=mrope, ref=ref, cache_seq=seq)
         logits = _head(cfg, lm, lm.norm_f(h), mesh)
     if ranked:
-        logits = L.gather_rows(logits, mesh, B)
+        logits = place_logits(cfg, logits, mesh, B)
     return logits, cache

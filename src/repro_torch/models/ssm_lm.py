@@ -104,14 +104,12 @@ def mamba_layer(cfg: ModelConfig, lp: SSMBlock, h: torch.Tensor,
 
 def forward_train(cfg: ModelConfig, lm: SSMLM, batch: Dict, mesh=None,
                   remat: str = "none") -> torch.Tensor:
-    """Logits (B, S, vocab) in the compute type, recording gradients for
-    whichever weights require them, each layer under
-    ``lm.remat_apply``; across the ranks of a DeviceMesh the whole logits
-    on every rank."""
+    """Logits (B, S, vocab) in the compute type on one card, recording
+    gradients for whichever weights require them, each layer under
+    ``lm.remat_apply``; across the ranks of a DeviceMesh,
+    :func:`forward_rows` gives each rank its block."""
     LMmod.check_remat(remat)
-    if L.ranked(mesh):
-        logits, _ = forward_rows(cfg, lm, batch, mesh, remat)
-        return L.gather_rows(logits, mesh, batch["tokens"].shape[0])
+    LMmod._one_card(mesh, "forward_train")
     h = lm.embed[batch["tokens"]].to(L.dtype_of(cfg.compute_dtype))
     for lp in lm.layers:
         h = LMmod.remat_apply(lambda h, lp=lp: mamba_layer(cfg, lp, h), h,
@@ -122,7 +120,7 @@ def forward_train(cfg: ModelConfig, lm: SSMLM, batch: Dict, mesh=None,
 def forward_rows(cfg: ModelConfig, lm: SSMLM, batch: Dict, mesh,
                  remat: str = "none"):
     """Across the ranks of a DeviceMesh: (this rank's rows' logits, those
-    rows of the batch)."""
+    rows of the batch), as ``lm.forward_rows`` gives them."""
     tokens = batch["tokens"]
     rows = L.batch_rows(tokens.shape[0], mesh)
     with L.tp_weights(lm, mesh, skip=("layers",)):
@@ -139,8 +137,14 @@ def forward_rows(cfg: ModelConfig, lm: SSMLM, batch: Dict, mesh,
 def forward(cfg: ModelConfig, lm: SSMLM, batch: Dict, mesh=None,
             remat: str = "none") -> torch.Tensor:
     """Prefill forward: logits (B, S, vocab) in the compute type, without
-    gradients (``remat`` must be "none"; train through :func:`loss_fn`)."""
+    gradients (``remat`` must be "none"; train through :func:`loss_fn`);
+    across the ranks of a DeviceMesh a DTensor placed by
+    ``lm.place_logits``."""
     LMmod.check_remat(remat, grad=False)
+    if L.ranked(mesh):
+        logits, _ = forward_rows(cfg, lm, batch, mesh)
+        return LMmod.place_logits(cfg, logits, mesh,
+                                  batch["tokens"].shape[0])
     return forward_train(cfg, lm, batch, mesh)
 
 
@@ -150,7 +154,7 @@ def loss_fn(cfg: ModelConfig, lm: SSMLM, batch: Dict, mesh=None,
     the ranks of a DeviceMesh the global mean over every rank's rows."""
     if L.ranked(mesh):
         logits, rows = forward_rows(cfg, lm, batch, mesh, remat)
-        return LMmod.ranked_loss(logits, rows, batch, mesh)
+        return LMmod.ranked_loss(cfg, logits, rows, batch, mesh)
     return LMmod.cross_entropy(forward_train(cfg, lm, batch, mesh, remat),
                                batch["labels"])
 
@@ -190,7 +194,7 @@ def decode_step(cfg: ModelConfig, lm: SSMLM, cache: Dict[str, torch.Tensor],
     the new states into ``cache`` in place and returns (logits (B, 1,
     vocab), cache). Across the ranks of a DeviceMesh each rank steps its
     batch rows (``layers.batch_rows``), writes their states, and returns
-    the whole logits."""
+    the logits placed by ``lm.place_logits``."""
     B = tokens.shape[0]
     rows = L.batch_rows(B, mesh)
     with L.tp_weights(lm, mesh, skip=("layers",)):
@@ -201,5 +205,5 @@ def decode_step(cfg: ModelConfig, lm: SSMLM, cache: Dict[str, torch.Tensor],
                            for k, c in cache.items()}, h, mesh=mesh)
         logits = LMmod._head(cfg, lm, lm.norm_f(h), mesh)
     if L.ranked(mesh):
-        logits = L.gather_rows(logits, mesh, B)
+        logits = LMmod.place_logits(cfg, logits, mesh, B)
     return logits, cache

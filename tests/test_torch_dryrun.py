@@ -16,6 +16,15 @@
   where a dim does not divide (granite-3-8b's vocab of 49 155 over 16);
   XLA pads such a dim to ``ceil(dim / n)`` per device, and that is what
   the port's ``torch.chunk`` gives rank 0, so the test compares with it.
+  The logits that a prefill or decode cell's program returns are held
+  the same way, against the reference's placement of them: a decode
+  step's is ``build_serve_step``'s ``out_shardings`` (``P(dp, None,
+  "model" if vocab_size % tp == 0 else None)``, ``dp`` None where the
+  cache's positions take the data axis), a prefill's is what XLA's
+  propagation gives the jitted forward (``P(dp, None, "model")``, or
+  ``P(dp)`` where 16 does not divide the vocabulary: granite-3-8b,
+  mamba2-130m, hubert-xlarge; pinned on four devices by
+  ``test_torch_sharding.py``).
 * FLOPs: reduced llama3-8b's prefill on a (2, 2) fake group counts, on
   rank 0, exactly the hand formula of its tensor-parallel layers.
 * One full-width cell end to end (llama3-8b ``decode_32k``, single pod)
@@ -27,6 +36,7 @@ The collectives of the dry run are held to a real 4-rank gloo run in
 ``test_torch_sharding.py``, whose ranks record them.
 """
 
+import dataclasses
 import json
 import math
 
@@ -221,6 +231,14 @@ def _ref_rank_leaves(arch, shape_name, multi):
         batch = ref_specs.batch_specs(cfg, shape)
         out["batch"] = _device_leaves(
             batch, ref_partition.batch_shardings(rules, batch))
+    if shape.kind != "train":
+        dp = rules.table["batch"]
+        vocab_ax = "model" if cfg.vocab_size % tp == 0 else None
+        seq = 1 if shape.kind == "decode" else shape.seq_len
+        out["outputs"] = {"logits": _device_shape(
+            NamedSharding(mesh, jax.sharding.PartitionSpec(dp, None,
+                                                           vocab_ax)),
+            (shape.global_batch, seq, cfg.vocab_size))}
     pshapes, axes = api.abstract_init(jax.random.PRNGKey(0))
     psh = ref_partition.params_shardings(rules, axes)
     out["params"] = _device_leaves(pshapes, psh)
@@ -236,10 +254,21 @@ def _ref_rank_leaves(arch, shape_name, multi):
                          ids=[f"{a}-{s}-{'multi' if m else 'single'}"
                               for a, s, m in CELLS])
 def test_rank_leaves_match_reference(arch, shape_name, multi):
+    """Rank 0's argument leaves of the cell, and the logits its prefill or
+    decode program returns, against ``repro``'s shardings. The logits'
+    placement does not depend on depth, so the program that returns them
+    runs the cell's config cut to two layers (at every width), which
+    keeps the 42 programs on ``meta`` to seconds."""
     want = _ref_rank_leaves(arch, shape_name, multi)
     with dryrun.fake_group(512 if multi else 256):
-        cell, _ = dryrun.lower_cell(arch, shape_name, multi)
+        cell, mesh = dryrun.lower_cell(arch, shape_name, multi)
         got = dryrun.rank_leaves(cell)
+        if "outputs" in want:
+            cut = dataclasses.replace(cell.cfg,
+                                      n_layers=min(2, cell.cfg.n_layers))
+            short = dryrun.build_cell(cut, cell.shape, mesh)
+            got["outputs"] = dryrun.rank_leaves(
+                short, short.program())["outputs"]
     assert not dist.is_initialized()
     got.pop("err", None)
     assert sorted(got) == sorted(want)

@@ -3,12 +3,15 @@ rules (``repro_torch.sharding.partition``), the parameters' logical-axes
 tree (``models.carry.param_axes``), the GPipe schedule
 (``sharding.pipeline``), ``layers.shard_act`` / ``gather_weights``, the
 grouped GEMM forms, the expert-parallel MoE, tensor-parallel flash
-attention, reduced llama3-8b and kimi-k2 forwards and decode steps on a
-2 x 2 mesh, the optimizer-state placements and the elastic restore.
+attention, reduced llama3-8b, kimi-k2, mamba2-130m and zamba2-1.2b
+forwards and decode steps on 2 x 2 and 1 x 4 (each rank's logits the
+block ``repro`` places on the device at its mesh coordinate, with
+llama3-8b's vocabulary also at 501 and 504), the optimizer-state
+placements and the elastic restore.
 
 What needs ranks runs once per file: four spawned gloo ranks
 (``torch_ranks.sharding_body``, joined within ``torch_ranks.TIMEOUT`` =
-120 s, then killed) beside one subprocess that runs ``repro`` on four
+300 s, then killed) beside one subprocess that runs ``repro`` on four
 forced host devices (``mesh_reference.py``). Weights come from
 ``repro``'s ``init``; tokens and activations from numpy seeds.
 
@@ -21,6 +24,7 @@ without arithmetic and are held bit for bit.
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -173,6 +177,8 @@ def runs(tmp_path_factory):
     assert ref.returncode == 0, err[-3000:]
     with np.load(d / "ref.npz") as z:
         want = {k.replace("__", "/"): z[k] for k in z.files}
+    with open(d / "ref.json") as fh:
+        want["meta"] = json.load(fh)
     return flat, ranks, want
 
 
@@ -489,53 +495,90 @@ def test_tp_flash_matches_reference(runs, mesh, H, KV):
 # whole models on the 2 x 2 mesh
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", R.FORWARD_ARCHS)
-def test_forward_matches_reference_on_2x2(runs, arch):
-    """Flash prefill (TP heads), EP MoE (kimi-k2), rows over "data" (the
-    recurrent families: rows only): ``repro``'s forward on its 2 x 2 mesh
-    within 1e-4, the same logits on every rank."""
+# the 2 x 2 cases at the configs' vocabulary keep the arch as their id
+LOGITS_IDS = [a if (m, v) == ("2x2", None) else
+              R.logits_key(m, a, v)[len("logits/"):].replace("/", "-")
+              for m, a, v in R.LOGITS_CASES]
+
+
+def _hold_blocks(runs, case, what):
+    """Each rank's local logits against the shard ``repro`` places on the
+    device at the same mesh coordinate: the same shape, within 1e-4."""
     _, ranks, want = runs
-    got = ranks[0][f"{arch}/forward"]
-    np.testing.assert_allclose(got, want[f"{arch}/forward"], rtol=0,
-                               atol=FWD_TOL)
-    for r in ranks[1:]:
-        np.testing.assert_array_equal(r[f"{arch}/forward"], got)
+    key = R.logits_key(*case)
+    for r, got in enumerate(ranks):
+        block = want[f"{key}/{what}/{r}"]
+        assert got[f"{key}/{what}"].shape == block.shape, r
+        np.testing.assert_allclose(got[f"{key}/{what}"], block, rtol=0,
+                                   atol=FWD_TOL, err_msg=f"rank {r}")
+    return want["meta"][f"{key}/{what}"], ranks[0]
 
 
-@pytest.mark.parametrize("arch", R.FORWARD_ARCHS)
-def test_decode_matches_reference_on_2x2(runs, arch):
+@pytest.mark.parametrize("case", R.LOGITS_CASES, ids=LOGITS_IDS)
+def test_forward_matches_reference_on_2x2(runs, case):
+    """Flash prefill (TP heads), EP MoE (kimi-k2), rows over "data", on
+    2 x 2 and 1 x 4: each rank's logits are ``repro``'s shard on the
+    device at its mesh coordinate (its forward jitted with the dry run's
+    ``in_shardings``, XLA's propagated placement): rows split over
+    "data", the vocabulary split over "model" where 2 or 4 divides it
+    (504: in blocks of 252 or 126, not the padded 256 or 128) and whole
+    where it does not (501: ``P('data',)``)."""
+    name, arch, vocab = case
+    meta, r0 = _hold_blocks(runs, case, "forward")
+    dp, tp = R.MESHES[name][0]
+    key = R.logits_key(*case)
+    if vocab == 501:
+        assert meta["spec"] in ("PartitionSpec('data',)", "PartitionSpec()")
+        assert r0[f"{key}/forward"].shape == (4 // dp, 16, 501)
+    else:
+        assert "'model'" in meta["spec"]
+        assert r0[f"{key}/forward"].shape[-1] == (vocab or 512) // tp
+    assert r0[f"{key}/placements"][1] == (
+        "Shard(dim=2)" if vocab != 501 else "Replicate()")
+
+
+@pytest.mark.parametrize("case", R.LOGITS_CASES, ids=LOGITS_IDS)
+def test_decode_matches_reference_on_2x2(runs, case):
     """Three decode steps from an empty cache (kimi-k2: 4 tokens a step
     through the EP MoE on 4 ranks; the recurrent families' states and the
-    hybrid's shared-block cache by rows) against ``repro``'s on its
-    mesh."""
-    _, ranks, want = runs
-    np.testing.assert_allclose(ranks[0][f"{arch}/decode"],
-                               want[f"{arch}/decode"], rtol=0, atol=FWD_TOL)
-    for r in ranks[1:]:
-        np.testing.assert_array_equal(r[f"{arch}/decode"],
-                                      ranks[0][f"{arch}/decode"])
+    hybrid's shared-block cache by rows), on 2 x 2 and 1 x 4: each rank's
+    logits of every step are the shard of ``repro``'s ``build_serve_step``
+    output (``P(dp, None, "model" if vocab % tp == 0 else None)``) on the
+    device at its mesh coordinate."""
+    name, arch, vocab = case
+    meta, r0 = _hold_blocks(runs, case, "decode")
+    tp = R.MESHES[name][0][1]
+    key = R.logits_key(*case)
+    want = "None" if (vocab or 512) % tp else "'model'"
+    assert meta["spec"].endswith(f"None, {want})")
+    assert r0[f"{key}/decode_placements"][1] == (
+        "Shard(dim=2)" if want == "'model'" else "Replicate()")
 
 
 @pytest.mark.parametrize("arch", R.FORWARD_ARCHS)
 def test_serve_step_across_ranks_is_the_decode_step(runs, arch):
     """``build_serve_step`` on the mesh: its step is the decode step (the
-    first one, bit for bit), and its info holds the placements of the
-    parameters and the cache."""
-    r = runs[1][0]
-    np.testing.assert_array_equal(r[f"{arch}/serve_step"],
-                                  r[f"{arch}/decode"][0])
-    assert r[f"{arch}/serve_info"] == ["axes", "cache", "cache_axes",
-                                       "cache_shapes", "params"]
+    first one, bit for bit, in every rank's block of the placed logits),
+    and its info holds the placements of the parameters and the cache."""
+    key = R.logits_key("2x2", arch)
+    for rank, r in enumerate(runs[1]):
+        np.testing.assert_array_equal(r[f"{key}/serve_step"],
+                                      r[f"{key}/decode"][0],
+                                      err_msg=f"rank {rank}")
+        assert r[f"{key}/serve_info"] == ["axes", "cache", "cache_axes",
+                                          "cache_shapes", "params"]
 
 
 @pytest.mark.parametrize("arch", R.FORWARD_ARCHS)
 def test_forward_with_placed_weights_is_bitwise(runs, arch):
     """Weights as DTensors placed by the partition rules (FSDP x TP),
     gathered layer by layer: the same logits as plain weights, bit for
-    bit."""
-    r = runs[1][0]
-    np.testing.assert_array_equal(r[f"{arch}/forward_dtensor"],
-                                  r[f"{arch}/forward"])
+    bit, in every rank's block of the placed logits."""
+    key = R.logits_key("2x2", arch)
+    for rank, r in enumerate(runs[1]):
+        np.testing.assert_array_equal(r[f"{key}/forward_dtensor"],
+                                      r[f"{key}/forward"],
+                                      err_msg=f"rank {rank}")
 
 
 def test_training_across_ranks_gives_the_reference_loss(runs):
@@ -644,7 +687,9 @@ def test_dryrun_collectives_equal_gloo_rank(runs):
     """The dry run of reduced llama3-8b's prefill on a (2, 2) fake group
     (meta tensors, rank 0) records the collectives, counts and result
     bytes by kind, that rank 0 of the real 4-rank gloo run issues, and
-    their number is the one ``CommDebugMode`` counts there."""
+    their number is the one ``CommDebugMode`` counts there. Nothing is
+    all-gathered: the weights are placed without FSDP, and the logits
+    stay split by rows and vocabulary as the reference leaves them."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
@@ -659,4 +704,4 @@ def test_dryrun_collectives_equal_gloo_rank(runs):
     assert sum(rec["collectives"]["counts"].values()) == \
         ranks[0]["dryrun/comm_debug_total"]
     assert rec["collectives"]["counts"]["all-reduce"] > 0
-    assert rec["collectives"]["bytes"]["all-gather"] > 0
+    assert rec["collectives"]["bytes"]["all-gather"] == 0

@@ -22,6 +22,15 @@ parameters after three steps within ``2 lr + 1e-6``. The sums run in
 another order across ranks than on one device, which is all these allow
 for. Values that move without arithmetic (gathered gradients and
 parameters on every rank, the trainer's recovery) are held bit for bit.
+
+The loss is vocab-parallel wherever "model" has more than one rank (every
+case here): each rank's cross entropy reads its block of the vocabulary's
+columns. Reduced llama3-8b at a vocabulary of 501 (padded to 512) on 2 x 2
+and 1 x 4 (``torch_ranks.VOCAB_CASES``) splits it unevenly; no rank may
+make a tensor of the padded vocabulary's width in the loss or its
+backward, and ``lm.vocab_parallel_nll`` itself is held to the whole
+vocabulary's cross entropy on 1 x 4 (1e-6), padded columns and labels of
+-100 leaving it bit for bit unchanged.
 """
 
 import os
@@ -51,6 +60,7 @@ from torch_parity import assert_flat_checksums
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ARCHS = [arch for arch, _, _ in R.TRAIN_CASES]
+GRAD_CASES = ARCHS + [R.vocab_case(*c) for c in R.VOCAB_CASES]
 
 
 def _inputs():
@@ -65,6 +75,15 @@ def _inputs():
         for t in range(R.TRAIN_STEPS):
             for k, v in pipe.batch_at(t).items():
                 flat[f"{arch}/batch{t}/{k}"] = v
+    rng = np.random.default_rng(7)
+    for vocab in sorted({v for _, v in R.VOCAB_CASES}):
+        tokens = rng.integers(0, vocab, size=(B, S)).astype(np.int32)
+        labels = np.roll(tokens, -1, axis=1)
+        labels[:, -1] = -100
+        labels[rng.random((B, S)) < 0.2] = -100
+        labels[0, 0] = vocab - 1                 # the last true column
+        flat[f"v{vocab}/batch0/tokens"] = tokens
+        flat[f"v{vocab}/batch0/labels"] = labels
     return flat
 
 
@@ -136,12 +155,14 @@ def _same_on_every_rank(ranks, get):
 # gradients and train steps against repro on its mesh
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", GRAD_CASES)
 def test_gradients_across_ranks_match_reference(runs, arch):
     """``info["value_and_grad"]`` across the ranks, every leaf's global
     gradient, against ``jax.grad`` of ``repro``'s ``loss_fn`` on the same
     mesh: a gradient never summed over "data", or summed once too often
-    over "model", is off by a factor of 2 or 4."""
+    over "model", is off by a factor of 2 or 4. The vocab-parallel loss
+    runs in every case; the ``VOCAB_CASES`` split a vocabulary of 501
+    over 2 and 4 ranks, with labels of -100."""
     _, ranks, want, _, _ = runs
     got = ranks[0][f"grads/{arch}"]
     assert abs(got["loss"] - float(want[f"grads/{arch}/loss"])) <= 1e-5
@@ -154,6 +175,36 @@ def test_gradients_across_ranks_match_reference(runs, arch):
         err = float(np.abs(got["grads"][path] - g).max())
         assert err <= 1e-5 * float(np.abs(g).max()), (path, err)
     _same_on_every_rank(ranks, lambda r: r[f"grads/{arch}"]["grads"])
+
+
+@pytest.mark.parametrize("arch", GRAD_CASES)
+def test_no_rank_makes_the_padded_vocabulary_wide(runs, arch):
+    """At TP 2 and 4 no local operation of the loss and its backward on
+    any rank makes a tensor whose last dim is the padded vocabulary's
+    (each rank's logits and their float32 copies hold its block of the
+    columns, ``padded_vocab / tp`` wide)."""
+    for r in runs[1]:
+        assert r[f"grads/{arch}"]["wide"] == []
+
+
+def test_vocab_parallel_nll_ignores_labels_and_padding(runs):
+    """``lm.vocab_parallel_nll`` on 1 x 4, a vocabulary of 501 padded to
+    512: the mean and each rank's block of its gradient equal the whole
+    vocabulary's cross entropy (``lm._nll_terms``) within 1e-6; padded
+    columns of 1e4 instead of 0 change neither bit; the padded columns'
+    gradient and every column's gradient in a row labelled -100 are 0
+    on every rank (rank 0's column 0 among them)."""
+    labels = runs[1][0]["ce/labels"]
+    for r in runs[1]:
+        assert r["ce/0.0/loss"] == r["ce/10000.0/loss"]
+        np.testing.assert_array_equal(r["ce/0.0/grad"], r["ce/10000.0/grad"])
+        assert abs(r["ce/0.0/loss"] - r["ce/ref/loss"]) <= 1e-6
+        np.testing.assert_allclose(r["ce/0.0/grad"], r["ce/ref/grad"],
+                                   rtol=0, atol=1e-6)
+        grad = r["ce/0.0/grad"]
+        assert not grad[labels == -100].any()
+        pad = 501 - r["ce/lo"]
+        assert pad >= grad.shape[-1] or not grad[..., max(pad, 0):].any()
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -27,7 +27,10 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 WORLD = 4
-TIMEOUT = 120.0
+# the ranks' limit is there to fail a hung collective: alone the ranks of
+# either file finish within a minute (CPU), but on a CPU shared with a
+# whole test run in six workers they were seen past 120 s
+TIMEOUT = 300.0
 # the reference's subprocess holds no collective that can hang, but its
 # compiles slow down many times over on a CPU shared with a whole test
 # run: it gets a limit of its own
@@ -44,6 +47,29 @@ FORWARD_ARCHS = ("llama3-8b", "kimi-k2-1t-a32b", "mamba2-130m",
                  "zamba2-1.2b")
 FORWARD_SHAPE = (4, 16)        # (B, S)
 DECODE_STEPS = 3
+# the logits-placement cases of the forwards and decode steps: (mesh,
+# arch, vocab), vocab None for the reduced config's 512; 501 (padded to
+# 512) splits over no TP degree, and 504 splits over 2 and 4 but not in
+# the padded vocabulary's blocks
+LOGITS_CASES = (tuple((m, a, None) for m in MESHES for a in FORWARD_ARCHS)
+                + tuple((m, "llama3-8b", v) for m in MESHES
+                        for v in (501, 504)))
+
+
+def logits_key(mesh: str, arch: str, vocab=None) -> str:
+    return f"logits/{mesh}/{arch}" + (f"-v{vocab}" if vocab else "")
+
+
+def logits_cfg(get_config, arch: str, vocab=None):
+    """A logits case's configuration in either package: reduced, float32
+    compute, the vocabulary ``vocab`` where given (the tables keep their
+    padded width, so the reduced weights carry over)."""
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              compute_dtype="float32")
+    return cfg if vocab is None else dataclasses.replace(cfg,
+                                                         vocab_size=vocab)
+
+
 PIPE_SHAPE = (8, 16, 6, 2)     # (L, D, n_micro, mb)
 DRYRUN_SHAPE = (4, 16)         # (B, S) of the dry run's gloo twin
 
@@ -87,6 +113,10 @@ def run_world(body: Callable, out_dir: str, world: int = WORLD,
 # ---------------------------------------------------------------------------
 
 def _np(t) -> np.ndarray:
+    """A tensor on the host; of a DTensor, this rank's local part."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.to_local()
     return t.detach().to(torch.float32).numpy()
 
 
@@ -167,36 +197,52 @@ def flash_kw(cfg) -> Dict:
     return {} if cfg.family in ("ssm", "hybrid") else {"flash": True}
 
 
-def _forward_cases(mesh, flat) -> Dict:
+def logits_tokens(flat, arch: str, vocab=None):
+    """A logits case's tokens: the arch's, below ``vocab`` where given."""
+    tokens = flat[f"{arch}/tokens"]
+    return tokens if vocab is None else tokens % vocab
+
+
+def _forward_cases(meshes, flat) -> Dict:
+    """Each logits case's prefill logits and decode steps on its mesh as
+    this rank holds them (the local part of the placed DTensor) with the
+    placements; on 2 x 2 with the reduced configs also the serve step's
+    first step and the forward on weights placed by the rules."""
     from repro_torch.launch.steps import build_serve_step
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, get_config
     from repro_torch.models.carry import params_from_reference
     out = {}
     B, S = FORWARD_SHAPE
-    for arch in FORWARD_ARCHS:
-        cfg = _f32(arch)
+    for name, arch, vocab in LOGITS_CASES:
+        mesh = meshes[name]
+        key = logits_key(name, arch, vocab)
+        cfg = logits_cfg(get_config, arch, vocab)
         api = build_model(cfg)
         tree = _tree_from(flat, f"{arch}/params/")
         lm = params_from_reference(cfg, tree, device="cpu")
-        tokens = torch.from_numpy(flat[f"{arch}/tokens"])
-        out[f"{arch}/forward"] = _np(api.forward(lm, {"tokens": tokens},
-                                                 mesh, **flash_kw(cfg)))
+        tokens = torch.from_numpy(logits_tokens(flat, arch, vocab))
+        logits = api.forward(lm, {"tokens": tokens}, mesh, **flash_kw(cfg))
+        out[f"{key}/forward"] = _np(logits)
+        out[f"{key}/placements"] = tuple(map(repr, logits.placements))
         cache, _ = api.init_cache(B, DECODE_STEPS + 1)
         steps = []
         for t in range(DECODE_STEPS):
             logits, cache = api.decode_step(lm, cache, tokens[:, t:t + 1], t,
                                             mesh)
             steps.append(_np(logits))
-        out[f"{arch}/decode"] = np.stack(steps)
+        out[f"{key}/decode"] = np.stack(steps)
+        out[f"{key}/decode_placements"] = tuple(map(repr, logits.placements))
+        if name != "2x2" or vocab is not None:
+            continue
         serve_step, info = build_serve_step(api, mesh, batch=B,
                                             max_len=DECODE_STEPS + 1)
         logits, _ = serve_step(lm, api.init_cache(B, DECODE_STEPS + 1)[0],
                                tokens[:, :1], 0)
-        out[f"{arch}/serve_step"] = _np(logits)
-        out[f"{arch}/serve_info"] = sorted(info)
+        out[f"{key}/serve_step"] = _np(logits)
+        out[f"{key}/serve_info"] = sorted(info)
         placed = _with_dtensor_params(
             params_from_reference(cfg, tree, device="cpu"), mesh)
-        out[f"{arch}/forward_dtensor"] = _np(api.forward(
+        out[f"{key}/forward_dtensor"] = _np(api.forward(
             placed, {"tokens": tokens}, mesh, **flash_kw(cfg)))
     return out
 
@@ -461,7 +507,7 @@ def sharding_body(rank: int, out_dir: str) -> Dict:
                   for name, (shape, axes) in MESHES.items()}
         out.update(_moe_cases(rank, meshes, flat))
         out.update(_flash_cases(meshes, flat))
-        out.update(_forward_cases(meshes["2x2"], flat))
+        out.update(_forward_cases(meshes, flat))
         out.update(_training_cases(meshes["2x2"], flat))
         out.update(_c1_cases(meshes, flat))
         out.update(_pipeline_cases(flat))
@@ -482,6 +528,14 @@ TRAIN_CASES = (("llama3-8b", "2x2", "adamw"),
                ("mamba2-130m", "2x2", "adafactor"))
 TRAIN_SHAPE = (4, 16)          # (B, S)
 TRAIN_STEPS = 3
+# the gradient twins with the vocabulary split unevenly over "model":
+# reduced llama3-8b at a vocabulary of 501 (padded to 512) at TP 2 and 4,
+# its labels with -100s; (mesh, vocab)
+VOCAB_CASES = (("2x2", 501), ("1x4", 501))
+
+
+def vocab_case(mesh: str, vocab: int) -> str:
+    return f"llama3-8b-v{vocab}-{mesh}"
 # the trainer's runs: llama3-8b reduced, as tests/test_torch_train.py's
 TRAINER = dict(batch=4, seq=32, slot_every=2)
 TRAINER_STEPS, CRASH_AT, REF_SLOT_STEP = 8, 6, 2
@@ -573,9 +627,36 @@ def _steps(arch, mesh, optimizer, flat, compression="none") -> Dict:
     return out
 
 
-def _grads(arch, mesh, flat) -> Dict:
+def _wide(fn, width: int):
+    """(``fn()``, the shapes of the tensors on the CPU that the local
+    operations of ``fn`` make whose last dim is ``width``), the backward
+    included; DTensor's shape propagation on ``meta`` allocates nothing
+    and is not counted."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.launch.dryrun import _LocalMode
+    shapes = []
+
+    class Spy(_LocalMode):
+        def seen(self, func, args, out):
+            shapes.extend(tuple(t.shape) for t in tree_leaves(out)
+                          if isinstance(t, torch.Tensor)
+                          and not isinstance(t, FakeTensor)
+                          and t.device.type == "cpu" and t.dim()
+                          and t.shape[-1] == width)
+
+    with Spy():
+        out = fn()
+    return out, shapes
+
+
+def _grads(arch, mesh, flat, vocab=None) -> Dict:
     """The step's ``value_and_grad`` across the ranks: the loss and every
-    leaf's global gradient in the reference's layout."""
+    leaf's global gradient in the reference's layout, and the shapes of
+    the tensors of the padded vocabulary's width that the loss and its
+    backward made on the rank. ``vocab``: the configuration's vocabulary
+    and batch of ``VOCAB_CASES``."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch.steps import build_train_step, place_model
     from repro_torch.models import build_model, get_config
@@ -584,17 +665,56 @@ def _grads(arch, mesh, flat) -> Dict:
                                           tree_items)
     from repro_torch.sharding.partition import make_rules
     cfg = train_cfg(get_config, arch)
+    if vocab is not None:
+        cfg = dataclasses.replace(cfg, vocab_size=vocab)
     lm = place_model(params_from_reference(
         cfg, _tree_from(flat, f"{arch}/params/"), device="cpu"),
         make_rules(mesh))
     _, info, _ = build_train_step(build_model(cfg),
                                   TrainConfig(remat="none"), mesh)
-    batch = {k: torch.from_numpy(flat[f"{arch}/batch0/{k}"])
+    src = arch if vocab is None else f"v{vocab}"
+    batch = {k: torch.from_numpy(flat[f"{src}/batch0/{k}"])
              for k in ("tokens", "labels")}
-    loss, grads = info["value_and_grad"](lm, batch)
-    return {"loss": float(loss),
+    (loss, grads), wide = _wide(lambda: info["value_and_grad"](lm, batch),
+                                cfg.padded_vocab)
+    return {"loss": float(loss), "wide": wide,
             "grads": {p: to_host(x) for p, x in
                       tree_items(reference_tree(cfg, grads))}}
+
+
+def _vocab_ce_cases(mesh) -> Dict:
+    """``lm.vocab_parallel_nll`` on this rank's block of random logits of
+    a vocabulary of 501 padded to 512, labels with -100s (one at rank 0's
+    column 0's row), with the padded columns 0 and 1e4: the mean and the
+    block's gradient of each, and of ``lm._nll_terms`` on the whole
+    vocabulary's logits the same."""
+    from repro_torch.models import lm as lm_mod
+    tp, idx = mesh.size(1), mesh.get_local_rank("model")
+    V, P = 501, 512
+    p = P // tp
+    g = torch.Generator().manual_seed(5)
+    whole = torch.randn(2, 8, P, generator=g) * 3.0
+    labels = torch.randint(0, V, (2, 8), generator=g)
+    labels[0, :3] = -100
+    labels[1, 0], labels[1, 1], labels[1, 7] = 0, V - 1, -100
+    out = {"ce/labels": labels.numpy()}
+    for junk in (0.0, 1e4):
+        x = whole.clone()
+        x[..., V:] = junk
+        block = x[..., idx * p:(idx + 1) * p].clone().requires_grad_(True)
+        num, cnt = lm_mod.vocab_parallel_nll(block, labels, V, mesh)
+        loss = num / cnt
+        loss.backward()
+        out[f"ce/{junk}/loss"] = float(loss)
+        out[f"ce/{junk}/grad"] = _np(block.grad)
+    ref = whole[..., :V].clone().requires_grad_(True)
+    num, cnt = lm_mod._nll_terms(ref, labels)
+    (num / cnt).backward()
+    grad = torch.cat([ref.grad, torch.zeros(2, 8, P - V)], dim=-1)
+    out["ce/ref/loss"] = float(num / cnt)
+    out["ce/ref/grad"] = _np(grad[..., idx * p:(idx + 1) * p])
+    out["ce/lo"] = idx * p
+    return out
 
 
 def _trainer(workdir, mesh, mode="adcc"):
@@ -677,6 +797,10 @@ def train_body(rank: int, out_dir: str) -> Dict:
             out[f"grads/{arch}"] = _grads(arch, meshes[mesh], flat)
             out[f"steps/{arch}"] = _steps(arch, meshes[mesh], optimizer,
                                           flat)
+        for mesh, vocab in VOCAB_CASES:
+            out[f"grads/{vocab_case(mesh, vocab)}"] = _grads(
+                "llama3-8b", meshes[mesh], flat, vocab)
+        out.update(_vocab_ce_cases(meshes["1x4"]))
         out["int8"] = _steps("llama3-8b", meshes["2x2"], "adamw", flat,
                              compression="int8")
         out.update(_trainer_cases(rank, meshes["2x2"], out_dir))

@@ -8,9 +8,12 @@ reads ``DIR/inputs.npz`` (written by the test) and writes to
 (``torch_ranks.MESHES``): the loss and ``jax.grad`` of ``repro``'s
 ``loss_fn`` (float32 compute) from the carried weights, and three steps of
 ``repro``'s ``build_train_step`` on ``make_rules(mesh)``: each step's loss,
-grad_norm and checksums, and the parameters after them.
+grad_norm and checksums, and the parameters after them; and the loss
+and ``jax.grad`` of reduced llama3-8b at the vocabularies of
+``torch_ranks.VOCAB_CASES`` on their meshes.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -90,6 +93,19 @@ def main(out_dir: str) -> None:
                 out[f"{key}/{k}"] = np.asarray(flatten_checksums(c[k]))
         for path, w in _paths(p):
             out[f"steps/{arch}/params/{path}"] = w
+    for mesh_name, vocab in R.VOCAB_CASES:
+        mesh = meshes[mesh_name]
+        api = build_model(dataclasses.replace(
+            R.train_cfg(get_config, "llama3-8b"), vocab_size=vocab))
+        batch = {k: jnp.asarray(flat[f"v{vocab}/batch0/{k}"])
+                 for k in ("tokens", "labels")}
+        loss, grads = jax.jit(jax.value_and_grad(
+            lambda p, b: api.loss_fn(p, b, mesh)))(
+            _tree(flat, "llama3-8b/params/"), batch)
+        key = f"grads/{R.vocab_case(mesh_name, vocab)}"
+        out[f"{key}/loss"] = loss
+        for p, g in _paths(grads):
+            out[f"{key}/{p}"] = g
     np.savez(os.path.join(out_dir, "ref.npz"),
              **{k.replace("/", "__"): np.asarray(v, np.float32)
                 for k, v in out.items()})
