@@ -19,8 +19,9 @@ Phases, each printing one JSON line:
   build    nvcc-compiles every kernel under src/repro_torch/kernels/csrc
            (one nvcc per source, started together); per kernel its
            registers, shared memory and spills (ptxas) and its tensor-core
-           instructions (cuobjdump -sass), failing where the bf16 flash
-           kernel has no HGMMA (wgmma) or the f64 GEMM no DMMA
+           instructions (cuobjdump -sass), failing where a wgmma flash
+           kernel (bf16 and f16, tiles 16-256) has no HGMMA or the f64
+           GEMM no DMMA
   kernels  each CUDA kernel against its plain PyTorch version on the card,
            at the shapes its main path gives it (the batched sweep's for
            abft_matmul and tile_sums, the llama3-8b prefill's for
@@ -31,7 +32,18 @@ Phases, each printing one JSON line:
            causal and not, and at qwen2-vl-2b's prefill shape, q
            (2,4096,12,128) and k/v (2,4096,2,128): six query heads per KV
            head and a head count that is not a power of two, f32 and
-           bf16, timed beside its bound, its plain version and SDPA
+           bf16, timed beside its bound, its plain version and SDPA.
+           Then every route no arch reaches, each held to its plain
+           version and timed beside its bound, its plain version and its
+           library call: abft_matmul's f16, mixed f16/f32 and f64-in-f32
+           products at the sweep's shape and one of more row tiles than a
+           launch takes; tile_sums' f16, f32-in-f64 and f64-in-f32 sums at
+           the sweep's shape and a stack of more matrices than a launch
+           takes; flash_attention's f16 at llama3-8b's shape, bf16 and f16
+           at hd 256 and 192 (the 256 tile), bf16 and f32 at hd 100, f32
+           and bf16 at hd 512 (128-column chunks), f64 and bf16/f32 mixed
+           at (1, 1024, 8, 128), and f32 with B x H past grid y's 65535;
+           before them the same routes at ragged shapes, f8 included
   sweep    the port's main path, ``sweep(engine="fork", mode="batched")``,
            on four workloads under the torn-crash figure's strategies and
            full plans; every cell must equal the port's ``mode="measure"``
@@ -60,7 +72,10 @@ Phases, each printing one JSON line:
            kernel must launch once per layer), the same forward with plain
            attention beside it, 32 greedy KV-cache decode steps, and a
            teacher-forced decode of 16 prompt tokens that must give the
-           plain forward's logits; prints tokens per second and peak memory
+           plain forward's logits; the flash prefill again in float16
+           compute on the same weights (the f16 route on 32 launches, each
+           held to the kernel's plain version) against the float16 plain
+           forward; prints tokens per second and peak memory
   serve_moe the moe family: deepseek-v2-lite-16b (MoE with latent attention)
            at full width and depth, 64.8 GB of f32 weights from a seeded
            generator on the card: prefill of 2 prompts x 1024 tokens, which
@@ -272,13 +287,19 @@ PHASES = ("card", "build", "kernels", "sweep", "sharded", "kv", "device",
 MMA_KINDS = ("HGMMA", "HMMA", "DMMA")
 MMA_REQUIRED = {"flash_attention": ("flash_fwd_wgmma_kernel", ("HGMMA",)),
                 "abft_matmul": ("abft_mm_f64_dmma_kernel", ("DMMA",))}
+# instantiations that must be among them (template arguments as mangled):
+# the flash kernel in bf16 and f16, at tile widths 128 and 256
+MMA_INSTANCES = {"flash_attention": tuple(
+    f"flash_fwd_wgmma_kernel<{e}Li{hd}E>"
+    for e in ("13__nv_bfloat16", "6__half") for hd in (128, 256))}
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): the bounds
 # below are stated against these whatever the card's power limit is.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float64: 67e12,     # FP64 tensor-core rate, the
               torch.float32: 67e12,     # card's highest for the type
-              torch.bfloat16: 989e12}
+              torch.bfloat16: 989e12,
+              torch.float16: 989e12}
 
 # the serving phase: llama3-8b at full width and depth, the prefill shape
 # of the flash kernel's record
@@ -297,6 +318,14 @@ SERVE_SEED = 12
 # 2.5 x the readings, and the argmax share must stay above 90 %.
 SERVE_ATOL = 0.05
 SERVE_ARGMAX_FLOOR = 0.9
+# the same prefill in float16 compute on the same weights (the f16 route of
+# the flash kernel on a real model's 32 launches), against the plain
+# forward in float16. Set before its first run: f16 keeps 3 more mantissa
+# bits than bf16 at every rounding of the residual stream and of the
+# kernel's output, so the bf16 reading of 0.0176 should shrink about
+# eightfold, to near 0.002; the bound sits at five times that, and the
+# argmax share must stay above the bf16 floor.
+SERVE_F16_ATOL = 0.01
 
 # the moe serving phase: deepseek-v2-lite-16b at full width and full depth
 # (27 layers, 16.21e9 f32 parameters, 64.8 GB), prompts 2 x 1024
@@ -486,6 +515,7 @@ TRAIN_RUNS = ((TRAIN_ARCH, TRAIN_LAYERS, TRAIN_SEQ, True),
 # value (rtol 1.6e-2, atol 1e-5), f32 1e-5; the reasons stand beside the
 # numbers in the kernel's module, which the CPU tests read too
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = fa_kernel.BF16_RTOL, fa_kernel.BF16_ATOL
+FLASH_F16_RTOL, FLASH_F16_ATOL = fa_kernel.F16_RTOL, fa_kernel.F16_ATOL
 FLASH_F32_TOL = fa_kernel.F32_TOL
 # head dims off the kernel's tile widths at a prefill's size: hubert-
 # xlarge's attention (16 heads of 80, run in the 128-column tile) and 48
@@ -674,6 +704,10 @@ def phase_build() -> None:
                             for k in found.values()):
             raise AssertionError(f"{lib}: no {'/'.join(kinds)} instruction in "
                                  f"the SASS of {marker}: {found}")
+        missing = [fn for fn in MMA_INSTANCES.get(lib, ()) if fn not in found]
+        if missing:
+            raise AssertionError(f"{lib}: no instantiation {missing} among "
+                                 f"{sorted(found)}")
     emit({"phase": "build", "seconds": seconds,
           "sources": {name: {"seconds": info["seconds"],
                              "built": info["built"]}
@@ -681,39 +715,83 @@ def phase_build() -> None:
           "kernels": kernels})
 
 
+def _mm_tolerance(c_dtype, acc) -> tuple:
+    """``(rtol, atol)`` of abft_matmul's C against the plain version: the
+    accumulator's summation order (float64 ``1e-12``, float32 ``1e-4 /
+    1e-3``, the order of a float32 accumulation over k terms), or where C
+    is narrower, two ulps of C's rounding (bfloat16 ``2e-2``, float16
+    ``2e-3``). The checksums stay in the accumulator; their atol scales
+    with k like the reference's tests."""
+    if c_dtype == torch.bfloat16:
+        return 2e-2, 2e-2
+    if c_dtype == torch.float16:
+        return 2e-3, 2e-3
+    if acc == torch.float64 and c_dtype == torch.float64:
+        return 1e-12, 1e-12
+    return 1e-4, 1e-3
+
+
 def _matmul_checks(dev) -> list:
-    """abft_matmul at ragged shapes and every type pair: product and both
-    checksums against the plain version. Tolerances: float32 ``1e-4 /
-    1e-3`` (order of a float32 accumulation over k terms; checksums add
-    another n or m terms, so their atol scales with k like the
-    reference's tests); bfloat16 ``2e-2`` (the output rounds at 2^-8)."""
+    """abft_matmul's kernel at ragged shapes and every kind of type pair
+    (operands f16 / bf16 / f32 / f64, of one type or two, accumulated in
+    f32 or f64): product and both checksums against the plain version, at
+    ``_mm_tolerance``; then the public ``abft_matmul``, which accumulates
+    in float32 whatever its inputs (the reference's), on float64."""
     out = []
-    for (m, k, n), dtype, rtol, atol, views in (
-            ((257, 129, 65), torch.float32, 1e-4, 1e-3, False),
-            ((100, 130, 70), torch.float32, 1e-4, 1e-3, False),
-            ((256, 384, 128), torch.bfloat16, 2e-2, 2e-2, False),
-            ((1, 512, 1), torch.float32, 1e-4, 1e-3, False),
-            ((1, 512, 1), torch.bfloat16, 2e-2, 2e-2, False),
-            ((257, 129, 65), torch.float64, 1e-12, 1e-12, False),
-            ((100, 130, 70), torch.float64, 1e-12, 1e-12, False),
+    f16, bf16 = torch.float16, torch.bfloat16
+    f32, f64 = torch.float32, torch.float64
+    for (m, k, n), a_dtype, b_dtype, acc, views in (
+            ((257, 129, 65), f32, f32, f32, False),
+            ((100, 130, 70), f32, f32, f32, False),
+            ((256, 384, 128), bf16, bf16, f32, False),
+            ((1, 512, 1), f32, f32, f32, False),
+            ((1, 512, 1), bf16, bf16, f32, False),
+            ((257, 129, 65), f64, f64, f64, False),
+            ((100, 130, 70), f64, f64, f64, False),
             # odd k and n as views with even row strides: the f64 kernel's
             # 16-byte copies then end in half-filled chunks
-            ((96, 61, 63), torch.float64, 1e-12, 1e-12, True)):
+            ((96, 61, 63), f64, f64, f64, True),
+            # the types the reference's wrapper also takes
+            ((257, 129, 65), f16, f16, f32, False),
+            ((100, 130, 70), f16, f32, f32, False),     # mixed: f16 -> f32
+            ((96, 61, 63), bf16, f64, f32, True),       # C f32 -> bf16
+            ((100, 130, 70), f64, f64, f32, False),     # f64 in f32
+            ((257, 129, 65), f32, f32, f64, False),
+            ((100, 130, 70), f16, f16, f64, False),
+            ((96, 61, 63), f16, f32, f64, True),        # C f64 -> f16
+            ((1, 512, 1), f16, bf16, f32, False)):      # both -> f32
         rng = np.random.default_rng(m * 7 + k * 3 + n)
         pad = 1 if views else 0
         a = torch.from_numpy(rng.normal(size=(m, k + pad))
-                             ).to(dev, dtype)[:, :k]
+                             ).to(dev, a_dtype)[:, :k]
         b = torch.from_numpy(rng.normal(size=(k, n + pad))
-                             ).to(dev, dtype)[:, :n]
-        c, row, col = mm_ops.abft_matmul(a, b)
-        acc = torch.float64 if dtype == torch.float64 else torch.float32
+                             ).to(dev, b_dtype)[:, :n]
+        c, rowp_k, colp_k = mm_kernel.abft_matmul_cuda(a, b, acc_dtype=acc)
+        row, col = rowp_k.sum(dim=1), colp_k.sum(dim=0)
         cp, rowp, colp = mm_kernel.abft_matmul_plain(a, b, acc_dtype=acc)
-        name = f"abft_matmul{(m, k, n)}/{str(dtype)[6:]}"
+        rtol, atol = _mm_tolerance(a_dtype, acc)
+        crtol, catol = _mm_tolerance(acc, acc)
+        name = (f"abft_matmul{(m, k, n)}/{str(a_dtype)[6:]}"
+                f"{'' if b_dtype == a_dtype else '@' + str(b_dtype)[6:]}"
+                f" in {str(acc)[6:]}")
         errs = [check_close(name + " C", c, cp, rtol, atol),
-                check_close(name + " row", row, rowp, rtol, atol * k),
-                check_close(name + " col", col, colp, rtol, atol * k)]
+                check_close(name + " row", row, rowp, crtol, catol * k),
+                check_close(name + " col", col, colp, crtol, catol * k)]
         out.append({"case": name, "max_abs_err": max(errs),
                     "rtol": rtol, "atol": atol})
+    rng = np.random.default_rng(64)
+    a = torch.from_numpy(rng.normal(size=(100, 130))).to(dev)
+    b = torch.from_numpy(rng.normal(size=(130, 70))).to(dev)
+    c, row, col = mm_ops.abft_matmul(a, b)
+    cp, rowp, colp = mm_kernel.abft_matmul_plain(a, b, acc_dtype=f32)
+    if c.dtype != f64 or row.dtype != f32 or col.dtype != f32:
+        raise AssertionError(f"abft_matmul f64: {c.dtype}/{row.dtype}, the "
+                             f"reference gives float64/float32")
+    name = "abft_matmul (100, 130, 70)/float64, float32 accumulator"
+    out.append({"case": name, "rtol": 1e-4, "atol": 1e-3, "max_abs_err": max(
+        check_close(name + " C", c, cp, 1e-4, 1e-3),
+        check_close(name + " row", row, rowp, 1e-4, 1e-3 * 130),
+        check_close(name + " col", col, colp, 1e-4, 1e-3 * 130))})
     # gemm_batch in f64 as the sweep calls it: wave widths below, across and
     # far above the 64-row tile at the largest operator, and a smaller one;
     # the tolerance of the record below
@@ -731,25 +809,54 @@ def _matmul_checks(dev) -> list:
 
 
 def _tile_sums_checks(dev) -> list:
+    """tile_sums at ragged shapes, every input type with a float32 and a
+    float64 accumulator, against the plain version: float32 sums ``1e-4 /
+    1e-3`` (summation order), float64 ``1e-12``; then ``tile_sums`` and
+    ``verify_checksums`` on float64, which sum in float32 (the
+    reference's)."""
     out = []
-    for (B, m, n), dtype, rtol, atol in (
-            ((3, 257, 127), torch.float32, 1e-4, 1e-3),
-            ((2, 100, 70), torch.bfloat16, 1e-4, 1e-3),
-            ((5, 9, 5), torch.float64, 1e-12, 1e-12)):
+    f16, bf16 = torch.float16, torch.bfloat16
+    f32, f64 = torch.float32, torch.float64
+    for (B, m, n), dtype, acc in (
+            ((3, 257, 127), f32, f32),
+            ((2, 100, 70), bf16, f32),
+            ((5, 9, 5), f64, f64),
+            ((3, 257, 127), f16, f32),
+            ((2, 100, 70), f16, f64),
+            ((2, 100, 70), bf16, f64),
+            ((3, 257, 127), f32, f64),
+            ((5, 9, 5), f64, f32)):
         rng = np.random.default_rng(B * 101 + m * 11 + n)
         full = torch.from_numpy(rng.normal(size=(B, m + 1, n + 1))
                                 ).to(dev, dtype)
         x = full[:, :-1, :-1]       # strided, as the sweep passes it
-        acc = torch.float64 if dtype == torch.float64 else torch.float32
+        rtol, atol = (1e-12, 1e-12) if acc == f64 else (1e-4, 1e-3)
         row, col = cv_ops.tile_sums_batch(x, acc_dtype=acc)
         rowp, colp = cv_kernel.tile_sums_plain(x, acc_dtype=acc)
-        name = f"tile_sums{(B, m, n)}/{str(dtype)[6:]}"
+        name = f"tile_sums{(B, m, n)}/{str(dtype)[6:]} in {str(acc)[6:]}"
         errs = [check_close(name + " row", row, rowp, rtol, atol),
                 check_close(name + " col", col, colp, rtol, atol)]
         out.append({"case": name, "max_abs_err": max(errs),
                     "rtol": rtol, "atol": atol})
+    rng = np.random.default_rng(65)
+    x = torch.from_numpy(rng.normal(size=(100, 70))).to(dev)
+    row, col = cv_ops.tile_sums(x)
+    rowp, colp = cv_kernel.tile_sums_plain(x[None], acc_dtype=f32)
+    if row.dtype != f32:
+        raise AssertionError(f"tile_sums f64 gave {row.dtype}, the reference "
+                             f"float32")
+    out.append({"case": "tile_sums (100, 70)/float64 in float32",
+                "rtol": 1e-4, "atol": 1e-3, "max_abs_err": max(
+                    check_close("tile_sums f64 row", row, rowp[0], 1e-4, 1e-3),
+                    check_close("tile_sums f64 col", col, colp[0], 1e-4,
+                                1e-3))})
     # the verdict built on it: a clean full-checksum matrix verifies, a
-    # tampered element is located
+    # tampered element is located; in float64 the residuals are float32
+    cf = mm_ops.abft_matmul_full(x[:, :64], x[:64, :64].T.contiguous())
+    ok, rres, _ = cv_ops.verify_checksums(cf.to(f64))
+    if not bool(ok) or rres.dtype != f32:
+        raise AssertionError(f"verify_checksums f64: ok {bool(ok)}, "
+                             f"residuals {rres.dtype}")
     rng = np.random.default_rng(2)
     a = torch.from_numpy(rng.normal(size=(64, 64))).to(dev, torch.float32)
     b = torch.from_numpy(rng.normal(size=(64, 64))).to(dev, torch.float32)
@@ -768,6 +875,7 @@ def phase_kernels() -> list:
     """Returns the contract's per-kernel records, ``launches`` still to be
     filled in by the sweep phase."""
     dev = torch.device("cuda")
+    t0 = time.perf_counter()
     checks = _matmul_checks(dev) + _tile_sums_checks(dev)
     checks += _flash_checks(dev)
     emit({"phase": "kernel_checks", "cases": checks})
@@ -807,6 +915,7 @@ def phase_kernels() -> list:
         "bound_by": "operations" if by_ops >= by_bytes else "bytes",
         "library_ms": time_ms(lambda: torch.matmul(Z, S), 10),
         "library_call": "torch.matmul",
+        "routes": _matmul_routes(dev),
     })
     del Z, S, got, want
 
@@ -845,10 +954,12 @@ def phase_kernels() -> list:
         "library_ms": time_ms(lambda: (torch.sum(x, dim=2),
                                        torch.sum(x, dim=1)), 10),
         "library_call": "torch.sum(x, 2) and torch.sum(x, 1)",
+        "routes": _tile_sums_routes(dev),
     })
     del V, x, row, col, rowp, colp
     records.append(_flash_record(dev))
     torch.cuda.empty_cache()
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     return records
 
 
@@ -901,11 +1012,55 @@ def _flash_checks(dev) -> list:
                                     ).to(dev, dtype) for n in (H, KV, KV))
         got = fa_ops.flash_attention(q, k, v, causal=causal)
         want = fa_kernel.flash_attention_plain(q, k, v, causal=causal)
-        rtol, atol = ((FLASH_F32_TOL, FLASH_F32_TOL)
-                      if dtype == torch.float32
-                      else (FLASH_BF16_RTOL, FLASH_BF16_ATOL))
+        rtol, atol = fa_kernel.tolerance(dtype)
         name = (f"flash_attention{(B, S, H, KV, hd)}/{str(dtype)[6:]}"
                 f"{'' if causal else ' not causal'}")
+        out.append({"case": name, "rtol": rtol, "atol": atol,
+                    "max_abs_err": check_close(name, got, want, rtol, atol)})
+    # every route of fa_kernel.route at ragged S, off the tiles: f16 on the
+    # tensor cores, hd 129-256 (the 256 tile), bf16/f16 hd off multiples of
+    # 8 (zero-padded copy), hd past 256 (128-column chunks, each type), f64
+    # (computed in f32), mixed and float8 inputs (cast to f32)
+    f16, bf16 = torch.float16, torch.bfloat16
+    f32, f64 = torch.float32, torch.float64
+    for (B, S, H, KV, hd), qd, kvd, causal in (
+            ((2, 72, 4, 2, 32), f16, f16, True),
+            ((1, 200, 8, 2, 128), f16, f16, True),
+            ((2, 129, 4, 2, 48), f16, f16, False),
+            ((1, 200, 4, 2, 256), bf16, bf16, True),
+            ((1, 200, 4, 2, 256), f16, f16, False),
+            ((2, 130, 4, 2, 136), bf16, bf16, True),
+            ((1, 72, 4, 2, 192), f16, f16, True),
+            ((1, 100, 4, 2, 44), bf16, bf16, True),
+            ((1, 100, 4, 2, 100), f16, f16, False),
+            ((1, 70, 4, 2, 250), bf16, bf16, True),
+            ((1, 130, 4, 2, 200), f32, f32, True),
+            ((2, 72, 4, 2, 256), f64, f64, False),
+            ((1, 100, 4, 2, 300), f32, f32, True),
+            ((1, 72, 4, 2, 512), bf16, bf16, False),
+            ((1, 72, 4, 2, 384), f16, f16, True),
+            ((1, 130, 4, 2, 520), f64, f64, True),
+            ((2, 72, 4, 2, 64), f64, f64, True),
+            ((2, 72, 4, 2, 64), bf16, f32, True),
+            ((1, 100, 4, 2, 100), f32, bf16, False),
+            ((1, 64, 4, 2, 32), torch.float8_e4m3fn, torch.float8_e4m3fn,
+             True)):
+        rng = np.random.default_rng(B * 1000 + S * 10 + hd)
+        # float64 values as they are, the narrower types through float32
+        q, k, v = (torch.from_numpy(rng.normal(size=(B, S, n, hd))).to(
+            dev, f64 if d == f64 else f32).to(d)
+                   for n, d in ((H, qd), (KV, kvd), (KV, kvd)))
+        r = fa_kernel.route(q, k, v)
+        got = fa_ops.flash_attention(q, k, v, causal=causal)
+        want = fa_kernel.flash_attention_plain(q, k, v, causal=causal)
+        rtol, atol = fa_kernel.tolerance(qd)
+        if qd == torch.float8_e4m3fn:
+            # the output rounds to e4m3 (3 mantissa bits): two ulps
+            rtol, atol, got, want = 0.25, 1e-2, got.float(), want.float()
+        name = (f"flash_attention{(B, S, H, KV, hd)}/{str(qd)[6:]}"
+                f"{'' if kvd == qd else '/' + str(kvd)[6:]}"
+                f"{'' if causal else ' not causal'} ({r.kernel}, tile "
+                f"{r.tile})")
         out.append({"case": name, "rtol": rtol, "atol": atol,
                     "max_abs_err": check_close(name, got, want, rtol, atol)})
     # q/k/v as head views of one fused projection, read in place
@@ -971,17 +1126,224 @@ def _flash_head_dims(dev) -> list:
     return out
 
 
-def _flash_bound(B, S, H, KV, hd, causal) -> dict:
-    """B3's bound in bf16: the larger of its operations (each visible
-    (query, key) pair of a head costs hd multiply-adds for q.k and hd for
-    p.v) at the bf16 peak and its bytes (q, k, v read once, o written
-    once) at the memory rate."""
+def _flash_bound(B, S, H, KV, hd, causal, q_bytes=2, kv_bytes=2,
+                 peak=torch.bfloat16) -> dict:
+    """B3's bound, by default in bf16: the larger of its operations (each
+    visible (query, key) pair of a head costs hd multiply-adds for q.k and
+    hd for p.v) at the card's peak for ``peak`` and its bytes (q, k, v
+    read once, o written once in q's type) at the memory rate."""
     pairs = S * (S + 1) / 2 if causal else S * S
-    by_ops = 4.0 * hd * B * H * pairs / PEAK_FLOPS[torch.bfloat16]
-    by_bytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * KV * hd) \
-        / PEAK_BYTES_PER_S
+    by_ops = 4.0 * hd * B * H * pairs / PEAK_FLOPS[peak]
+    by_bytes = (2.0 * B * S * H * hd * q_bytes + 2.0 * B * S * KV * hd
+                * kv_bytes) / PEAK_BYTES_PER_S
     return {"bound_ms": 1e3 * max(by_ops, by_bytes),
             "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+
+
+def _peak_type(*dtypes) -> torch.dtype:
+    """The type whose peak bounds a kernel on operands of ``dtypes``: bf16
+    or f16 on the tensor cores where all are that type, else float32 (the
+    type mixed or other inputs are computed in), or float64."""
+    if len(set(dtypes)) == 1 and dtypes[0] in PEAK_FLOPS:
+        return dtypes[0]
+    return torch.float64 if torch.float64 in dtypes else torch.float32
+
+
+# Routes no arch of the registry reaches (every model runs bf16 or f32 at
+# a head dim of 128 or below), timed at prefill-sized shapes: label, (B,
+# S, H, KV, hd), q's and k/v's dtype; all causal.
+FLASH_ROUTE_CASES = (
+    ("f16 at llama3-8b's prefill", (2, 4096, 32, 8, 128),
+     torch.float16, torch.float16),
+    ("bf16 hd 256", (2, 4096, 16, 8, 256), torch.bfloat16, torch.bfloat16),
+    ("f16 hd 256", (2, 4096, 16, 8, 256), torch.float16, torch.float16),
+    ("bf16 hd 192 (256 tile)", (2, 4096, 16, 8, 192),
+     torch.bfloat16, torch.bfloat16),
+    ("f16 hd 192 (256 tile)", (2, 4096, 16, 8, 192),
+     torch.float16, torch.float16),
+    ("bf16 hd 100 (padded to 104, 128 tile)", (2, 4096, 16, 8, 100),
+     torch.bfloat16, torch.bfloat16),
+    ("f32 hd 100 (128 tile)", (2, 4096, 16, 8, 100),
+     torch.float32, torch.float32),
+    ("f32 hd 512 (128-column chunks)", (2, 4096, 16, 8, 512),
+     torch.float32, torch.float32),
+    ("bf16 hd 512 (128-column chunks)", (2, 4096, 16, 8, 512),
+     torch.bfloat16, torch.bfloat16),
+    ("f64 (computed in f32)", (1, 1024, 8, 2, 128),
+     torch.float64, torch.float64),
+    ("bf16 q, f32 k/v (cast to f32)", (1, 1024, 8, 2, 128),
+     torch.bfloat16, torch.float32),
+    ("f32, B x H = 81920 past grid y's 65535", (2048, 16, 40, 8, 16),
+     torch.float32, torch.float32),
+)
+NO_ARCH = "no arch reaches it"
+# CUDA's limit on grid y: row tiles of one B1 launch, matrices of one B2
+# launch; past it the kernels' C launchers cut the work into launches
+GRID_Y_MAX = 65535
+
+
+def _flash_routes(dev) -> list:
+    """B3's routes beyond the main path's (``FLASH_ROUTE_CASES``), each
+    held to its plain version at ``fa_kernel.tolerance`` and timed beside
+    its bound, the plain version and SDPA where SDPA computes the same
+    function (one dtype; not float64, which SDPA computes in float64)."""
+    out = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, (B, S, H, KV, hd), qd, kvd in FLASH_ROUTE_CASES:
+        g = torch.Generator(device=dev).manual_seed(B * S + hd)
+        q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev).to(d)
+                   for n, d in ((H, qd), (KV, kvd), (KV, kvd)))
+        r = fa_kernel.route(q, k, v)
+        rtol, atol = fa_kernel.tolerance(qd)
+        fa_kernel.launches = 0
+        got = fa_ops.flash_attention(q, k, v)
+        if fa_kernel.launches != 1:
+            raise AssertionError(f"flash_attention {label}: "
+                                 f"{fa_kernel.launches} launches")
+        err = check_close(f"flash_attention {label}", got,
+                          fa_kernel.flash_attention_plain(q, k, v),
+                          rtol, atol)
+        del got
+        same = qd == kvd and qd != torch.float64
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        out.append({
+            "case": label, "shape": f"q ({B},{S},{H},{hd}), k/v "
+                                    f"({B},{S},{KV},{hd}), causal",
+            "dtypes": [str(qd)[6:], str(kvd)[6:]],
+            "route": r._asdict() | {"cast": str(r.cast)[6:] if r.cast
+                                    else None},
+            "launches": NO_ARCH, "max_abs_err": err,
+            "tolerance": f"rtol {rtol}, atol {atol}",
+            "ms": time_ms(lambda: fa_ops.flash_attention(q, k, v), 10),
+            "plain_ms": time_ms(
+                lambda: fa_kernel.flash_attention_plain(q, k, v), 3),
+            **_flash_bound(B, S, H, KV, hd, True, q.element_size(),
+                           k.element_size(), _peak_type(qd, kvd)),
+            "library_ms": (time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                                enable_gqa=True), 10)
+                           if same else None),
+            "library_call": ("torch.nn.functional.scaled_dot_product_"
+                             "attention" if same else None)})
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out
+
+
+def _matmul_routes(dev) -> list:
+    """B1's type pairs beyond the sweep's f64, at the sweep's shape (256,
+    4096) @ (4096, 4096), and a product of more row tiles than one launch
+    takes; each against its plain version at ``_mm_tolerance``, timed
+    beside its bound, the plain version and torch.matmul where that
+    computes the same function (one type, accumulated in float32)."""
+    out = []
+    f16, f32, f64 = torch.float16, torch.float32, torch.float64
+    tall = GRID_Y_MAX * 64 + 71
+    for label, (m, k, n), ad, bd, acc in (
+            ("f16 in f32", (256, 4096, 4096), f16, f16, f32),
+            ("f16 a, f32 b in f32 (f16 -> f32)", (256, 4096, 4096),
+             f16, f32, f32),
+            ("f64 in f32 (abft_matmul on float64)", (256, 4096, 4096),
+             f64, f64, f32),
+            (f"f32 in f32, {tall} rows (cut into two launches)", (tall, 8, 8),
+             f32, f32, f32)):
+        rng = np.random.default_rng(m + k + n)
+        a = torch.from_numpy(rng.normal(size=(m, k))).to(dev, ad)
+        b = torch.from_numpy(rng.normal(size=(k, n))).to(dev, bd)
+        def fn():
+            c, rowp_k, colp_k = mm_kernel.abft_matmul_cuda(a, b,
+                                                           acc_dtype=acc)
+            return c, rowp_k.sum(dim=1), colp_k.sum(dim=0)
+
+        mm_kernel.launches = 0
+        c, row, col = fn()
+        launches = mm_kernel.launches
+        cp, rowp, colp = mm_kernel.abft_matmul_plain(a, b, acc_dtype=acc)
+        rtol, atol = _mm_tolerance(ad, acc)
+        crtol, catol = _mm_tolerance(acc, acc)
+        err = max(check_close(f"abft_matmul {label} C", c, cp, rtol, atol),
+                  check_close(f"abft_matmul {label} row", row, rowp, crtol,
+                              catol * k),
+                  check_close(f"abft_matmul {label} col", col, colp, crtol,
+                              catol * k))
+        del c, row, col, cp, rowp, colp
+        wide = torch.promote_types(ad, bd)
+        flops = 2.0 * m * n * k
+        nbytes = (a.numel() * a.element_size() + b.numel() * b.element_size()
+                  + m * n * a.element_size()
+                  + (m + n) * torch.empty(0, dtype=acc).element_size())
+        by_ops = flops / PEAK_FLOPS[_peak_type(wide)]
+        by_bytes = nbytes / PEAK_BYTES_PER_S
+        lib = ad == bd and acc == f32 and ad != f64
+        out.append({
+            "case": label, "shape": f"({m},{k})@({k},{n})",
+            "launches": NO_ARCH, "launches_in_check": launches,
+            "max_abs_err": err, "tolerance": f"rtol {rtol}, atol {atol}",
+            "ms": time_ms(fn, 10),
+            "plain_ms": time_ms(lambda: mm_kernel.abft_matmul_plain(
+                a, b, acc_dtype=acc), 10),
+            "bound_ms": 1e3 * max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "library_ms": time_ms(lambda: torch.matmul(a, b), 10)
+            if lib else None,
+            "library_call": "torch.matmul" if lib else None})
+        del a, b
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tile_sums_routes(dev) -> list:
+    """B2's type pairs beyond the sweep's f64, at the sweep's shape (the
+    data block of (B, 1025, 1025)), and a stack of more matrices than one
+    launch takes; each against its plain version, timed beside its bound,
+    the plain version and the pair of torch.sum calls with the
+    accumulator's dtype."""
+    out = []
+    f16, f32, f64 = torch.float16, torch.float32, torch.float64
+    m = 1025
+    B = batched.mm_slabs_per_launch(m)
+    many = GRID_Y_MAX + 4465
+    for label, (nb, mm_), dtype, acc in (
+            ("f16 in f32", (B, m), f16, f32),
+            ("f32 in f64", (B, m), f32, f64),
+            ("f64 in f32", (B, m), f64, f32),
+            (f"f32 in f32, {many} matrices of 9 x 9 (cut into two launches)",
+             (many, 10), f32, f32)):
+        V = torch.from_numpy(np.random.default_rng(nb + mm_).normal(
+            size=(nb, mm_, mm_))).to(dev, dtype)
+        x = V[:, :-1, :-1]
+        cv_kernel.launches = 0
+        row, col = cv_ops.tile_sums_batch(x, acc_dtype=acc)
+        launches = cv_kernel.launches
+        rowp, colp = cv_kernel.tile_sums_plain(x, acc_dtype=acc)
+        rtol, atol = (1e-12, 1e-10) if acc == f64 else (1e-4, 1e-3)
+        err = max(check_close(f"tile_sums {label} row", row, rowp, rtol,
+                              atol),
+                  check_close(f"tile_sums {label} col", col, colp, rtol,
+                              atol))
+        del row, col, rowp, colp
+        n_el = nb * (mm_ - 1) * (mm_ - 1)
+        acc_bytes = torch.empty(0, dtype=acc).element_size()
+        by_bytes = (n_el * x.element_size()
+                    + 2 * nb * (mm_ - 1) * acc_bytes) / PEAK_BYTES_PER_S
+        by_ops = 2.0 * n_el / PEAK_FLOPS[acc]
+        out.append({
+            "case": label, "shape": f"V[:, :-1, :-1] of ({nb},{mm_},{mm_})",
+            "launches": NO_ARCH, "launches_in_check": launches,
+            "max_abs_err": err, "tolerance": f"rtol {rtol}, atol {atol}",
+            "ms": time_ms(lambda: cv_ops.tile_sums_batch(x, acc_dtype=acc),
+                          10),
+            "plain_ms": time_ms(lambda: cv_kernel.tile_sums_plain(
+                x, acc_dtype=acc), 10),
+            "bound_ms": 1e3 * max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "library_ms": time_ms(lambda: (torch.sum(x, dim=2, dtype=acc),
+                                           torch.sum(x, dim=1, dtype=acc)),
+                                  10),
+            "library_call": "torch.sum(x, 2, dtype=acc) and "
+                            "torch.sum(x, 1, dtype=acc)"})
+        del V, x
+        torch.cuda.empty_cache()
+    return out
 
 
 def _flash_vlm_record(dev) -> dict:
@@ -1075,6 +1437,7 @@ def _flash_record(dev) -> dict:
                         "(is_causal=True, enable_gqa=True)",
         "head_dims": _flash_head_dims(dev),
         "qwen2_vl_prefill": _flash_vlm_record(dev),
+        "routes": _flash_routes(dev),
     }
 
 
@@ -1713,6 +2076,7 @@ def phase_serve(records: list) -> None:
     plain_prefix = plain[:, :n].clone()
     del logits, plain
     torch.cuda.empty_cache()
+    f16 = _serve_f16(cfg, lm, batch)
 
     # teacher-forced decode of the first prompt tokens == plain forward
     cache, _ = api.init_cache(B, S)
@@ -1778,6 +2142,7 @@ def phase_serve(records: list) -> None:
           "plain_prefill_seconds": plain_seconds,
           "plain_prefill_tokens_per_s": B * S / plain_seconds,
           "prefill_launches": launches,
+          "f16_prefill": f16,
           "flash_vs_plain_max_abs_err": flash_err,
           "flash_vs_plain_argmax_agree": agree,
           "logit_absmax": logit_absmax,
@@ -1791,6 +2156,51 @@ def phase_serve(records: list) -> None:
           "profile": profiles})
     del lm, cache
     torch.cuda.empty_cache()
+
+
+def _serve_f16(cfg, lm, batch) -> dict:
+    """llama3-8b's flash prefill once more in float16 compute on the same
+    weights: every flash launch held to the kernel's plain version at the
+    f16 tolerance (``_FlashChecked``), one launch per layer, then the
+    logits against the plain-attention forward in float16 within
+    ``SERVE_F16_ATOL`` and the argmax share above ``SERVE_ARGMAX_FLOOR``."""
+    api16 = build_model(dataclasses.replace(cfg, compute_dtype="float16"))
+    fa_kernel.launches = 0
+    with _FlashChecked() as checked:
+        logits = api16.forward(lm, batch, flash=True)
+    torch.cuda.synchronize()
+    launches = fa_kernel.launches
+    if launches != cfg.n_layers or len(checked.errs) != cfg.n_layers:
+        raise AssertionError(f"f16 prefill launched flash_attention "
+                             f"{launches} times, expected {cfg.n_layers}")
+    if logits.dtype != torch.float16 \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"f16 prefill logits {logits.dtype}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    del logits
+    t0 = time.perf_counter()
+    logits = api16.forward(lm, batch, flash=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = api16.forward(lm, batch, flash=False)
+    torch.cuda.synchronize()
+    plain_seconds = time.perf_counter() - t0
+    err, agree = _logits_err(logits, plain), _argmax_share(logits, plain)
+    absmax = float(plain.abs().max())
+    del logits, plain
+    torch.cuda.empty_cache()
+    if err > SERVE_F16_ATOL or agree < SERVE_ARGMAX_FLOOR:
+        raise AssertionError(f"f16 flash forward differs from the plain one "
+                             f"by {err} (bound {SERVE_F16_ATOL}), argmax "
+                             f"agreement {agree} (floor {SERVE_ARGMAX_FLOOR})")
+    return {"compute_dtype": "float16", "flash_launches": launches,
+            "launch_max_abs_err": max(checked.errs),
+            "launch_tolerance": list(fa_kernel.tolerance(torch.float16)),
+            "prefill_seconds": seconds, "plain_prefill_seconds": plain_seconds,
+            "flash_vs_plain_max_abs_err": err,
+            "flash_vs_plain_argmax_agree": agree, "logit_absmax": absmax,
+            "atol": SERVE_F16_ATOL, "argmax_floor": SERVE_ARGMAX_FLOOR}
 
 
 class _Routing:
@@ -1827,9 +2237,7 @@ class _FlashChecked:
 
         def checked(q, k, v, *, causal=True):
             out = self._real(q, k, v, causal=causal)
-            rtol, atol = ((FLASH_F32_TOL, FLASH_F32_TOL)
-                          if q.dtype == torch.float32
-                          else (FLASH_BF16_RTOL, FLASH_BF16_ATOL))
+            rtol, atol = fa_kernel.tolerance(q.dtype)
             name = (f"flash_attention in the prefill, launch "
                     f"{len(self.errs) + 1}, q {tuple(q.shape)} "
                     f"{str(q.dtype)[6:]}")

@@ -44,7 +44,7 @@ OUT = _build.build_dir().parent / "variants"
 _FA_BKV = "constexpr int BKV = 128;          // key rows per tile"
 _FA_AHEAD = ("constexpr int AHEAD = 1;          "
              "// key tiles in flight ahead of the one computed")
-_FA_LO = "            pv<HD>(acc, pl[kc], dv);\n"
+_FA_LO = "            pv<E, HD>(acc, pl[kc], dv);\n"
 _MM_BK = "constexpr int BK = 16;                  // depth of one slab"
 _MM_STAGES = "constexpr int STAGES = 4;               // slabs in the ring"
 _MM_SHAPE = "constexpr int MMA_M = 16, MMA_K = 4;"
@@ -146,7 +146,7 @@ def main() -> None:
                      q, k, v), 20),
                  "max_abs_err": cs.max_abs_err(got, want),
                  "out_of_bound": int(bad.sum()), "elements": got.numel(),
-                 **_resources(log, "flash_fwd_wgmma_kernel")})
+                 **_resources(log, "flash_fwd_wgmma_kernelI13__nv_bfloat16Li128E")})
     del q, k, v, want, got
 
     rng = np.random.default_rng(4096)

@@ -24,10 +24,17 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
-__all__ = ["CSRC", "NVCC_FLAGS", "build_dir", "build_all", "load",
-           "source_names"]
+import torch
+
+__all__ = ["CSRC", "NVCC_FLAGS", "TYPE_NAMES", "build_dir", "build_all",
+           "load", "source_names"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+
+# the element types the kernels are instantiated for, as their C entry
+# points name them (``abft_mm_f16_f32``, ``flash_attention_bf16``, ...)
+TYPE_NAMES = {torch.float16: "f16", torch.bfloat16: "bf16",
+              torch.float32: "f32", torch.float64: "f64"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -28,12 +28,11 @@ __all__ = ["abft_matmul_cuda", "abft_matmul_plain", "launches"]
 
 launches = 0
 
-# (input dtype, accumulator dtype) -> C entry point; C has the input's type
-_ENTRY = {
-    (torch.float32, torch.float32): "abft_mm_f32",
-    (torch.bfloat16, torch.float32): "abft_mm_bf16",
-    (torch.float64, torch.float64): "abft_mm_f64",
-}
+_NAME = _build.TYPE_NAMES
+# (operand dtype, accumulator dtype) -> C entry point: operands of any of
+# the four floating types, accumulated in float32 or float64
+_ENTRY = {(t, acc): f"abft_mm_{_NAME[t]}_{_NAME[acc]}"
+          for t in _NAME for acc in (torch.float32, torch.float64)}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -46,7 +45,7 @@ def _library() -> ctypes.CDLL:
         for name in _ENTRY.values():
             fn = getattr(lib, name)
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                           i64, i64, i64, ptr]
+                           i64, i64, i64, i32, ptr]
             fn.restype = i32
         for name in ("abft_mm_tile_m", "abft_mm_tile_n"):
             getattr(lib, name).argtypes = []
@@ -65,9 +64,14 @@ def abft_matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the kernel on CUDA tensors ``a (m, k)``, ``b (k, n)``.
 
-    Returns ``(C (m, n) in a's dtype, row_partials (m, n_tiles),
-    col_partials (m_tiles, n))``, partials in ``acc_dtype``. Raises for a
-    tensor that is not on the card or a type pair the kernel lacks."""
+    Operands of float16, bfloat16, float32 or float64, accumulated in
+    ``acc_dtype`` (float32 or float64). Operands of two types go to the
+    wider one first (torch.promote_types: exact, as the reference's
+    ``jnp.dot`` promotes); C keeps a's dtype, rounded once from the
+    accumulator. Returns ``(C (m, n) in a's dtype, row_partials (m,
+    n_tiles), col_partials (m_tiles, n))``, partials in ``acc_dtype``.
+    Raises for a tensor that is not on the card, mismatched shapes, or a
+    type outside those."""
     global launches
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
         raise ValueError("abft_matmul_cuda needs both operands on one "
@@ -75,31 +79,39 @@ def abft_matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"contraction mismatch {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
-    if a.dtype != b.dtype or (a.dtype, acc_dtype) not in _ENTRY:
+    if a.dtype not in _NAME or b.dtype not in _NAME \
+            or acc_dtype not in (torch.float32, torch.float64):
         raise TypeError(f"no abft_matmul kernel for inputs {a.dtype}/"
                         f"{b.dtype} with accumulator {acc_dtype}")
+    out_dtype = a.dtype
+    wide = torch.promote_types(a.dtype, b.dtype)
+    a, b = a.to(wide), b.to(wide)
+    # C straight in a's dtype where that is the operands' type; else the
+    # kernel writes the accumulator and C is that rounded once to a's dtype
+    c_acc = out_dtype != wide
     lib = _library()
     m, k = a.shape
     n = b.shape[1]
     a, b = _rows(a), _rows(b)
     mi = -(-m // lib.abft_mm_tile_m())
     nj = -(-n // lib.abft_mm_tile_n())
-    c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    c = torch.empty((m, n), dtype=acc_dtype if c_acc else wide,
+                    device=a.device)
     rowp = torch.empty((m, nj), dtype=acc_dtype, device=a.device)
     colp = torch.empty((mi, n), dtype=acc_dtype, device=a.device)
     if m == 0 or n == 0:
-        return c, rowp, colp
+        return c.to(out_dtype), rowp, colp
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _ENTRY[(a.dtype, acc_dtype)])(
+        err = getattr(lib, _ENTRY[(wide, acc_dtype)])(
             a.data_ptr(), b.data_ptr(), c.data_ptr(), rowp.data_ptr(),
             colp.data_ptr(), m, k, n, a.stride(0), b.stride(0), c.stride(0),
-            stream)
+            int(c_acc), stream)
     if err != 0:
         raise RuntimeError(f"abft_matmul kernel launch failed: CUDA error "
                            f"{err} for shapes ({m},{k})@({k},{n})")
     launches += 1
-    return c, rowp, colp
+    return c.to(out_dtype), rowp, colp
 
 
 def abft_matmul_plain(a: torch.Tensor, b: torch.Tensor, *,

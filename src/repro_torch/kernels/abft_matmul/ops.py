@@ -33,10 +33,11 @@ def _product_with_checksums(a: torch.Tensor, b: torch.Tensor,
 def abft_matmul(a: torch.Tensor, b: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """C = a @ b plus fused row/col checksums. Returns (C, row_cs,
-    col_cs): C in a's dtype, checksums in the accumulator's (float32 for
-    float32/bfloat16 inputs, float64 for float64)."""
-    acc = torch.float64 if a.dtype == torch.float64 else torch.float32
-    return _product_with_checksums(a, b, acc)
+    col_cs): C in a's dtype, the checksums in float32. The product is
+    accumulated in float32 whatever the inputs' type, float64 included,
+    as the reference's wrapper calls its kernel with the default
+    accumulator; :func:`gemm_batch` is the entry that names another."""
+    return _product_with_checksums(a, b, torch.float32)
 
 
 def gemm_batch(a: torch.Tensor, b: torch.Tensor, *,

@@ -11,8 +11,7 @@ __all__ = ["abft_matmul_ref", "abft_encode_full_ref"]
 
 def abft_matmul_ref(a: torch.Tensor, b: torch.Tensor):
     """Reference: (C, row_checksums (m,), col_checksums (n,)) in float32
-    accumulation regardless of input dtype (the kernel's accumulation
-    semantics for float32 and bfloat16 inputs)."""
+    accumulation regardless of input dtype, as ``ops.abft_matmul``."""
     return abft_matmul_plain(a, b, acc_dtype=torch.float32)
 
 

@@ -27,15 +27,11 @@ __all__ = ["tile_sums_cuda", "tile_sums_plain", "launches"]
 
 launches = 0
 
-# (input dtype, accumulator dtype) -> C entry point
-_ENTRY = {
-    (torch.float32, torch.float32): "tile_sums_f32",
-    (torch.bfloat16, torch.float32): "tile_sums_bf16",
-    (torch.float64, torch.float64): "tile_sums_f64",
-}
-
-# CUDA's limit on the second and third grid dimensions
-_GRID_YZ_MAX = 65535
+_NAME = _build.TYPE_NAMES
+# (input dtype, accumulator dtype) -> C entry point: any of the four
+# floating types, summed in float32 or float64
+_ENTRY = {(t, acc): f"tile_sums_{_NAME[t]}_{_NAME[acc]}"
+          for t in _NAME for acc in (torch.float32, torch.float64)}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -62,8 +58,9 @@ def tile_sums_cuda(x: torch.Tensor, *,
     """Launch the kernel on a CUDA tensor ``x (B, m, n)`` of any strides
     (a sliced view is read in place). Returns ``(row_partials
     (B, m, n_tiles), col_partials (B, m_tiles, n))`` in ``acc_dtype``.
-    Raises for a tensor that is not on the card or a type pair the
-    kernel lacks."""
+    ``x`` is float16, bfloat16, float32 or float64, each element
+    converted to ``acc_dtype`` (float32 or float64) as it is read. Raises
+    for a tensor that is not on the card or a type outside those."""
     global launches
     if not x.is_cuda:
         raise ValueError(f"tile_sums_cuda needs a CUDA tensor, got {x.device}")
@@ -76,8 +73,6 @@ def tile_sums_cuda(x: torch.Tensor, *,
     B, m, n = x.shape
     mi = -(-m // lib.tile_sums_tile_m())
     nj = -(-n // lib.tile_sums_tile_n())
-    if mi > _GRID_YZ_MAX or nj > _GRID_YZ_MAX:
-        raise ValueError(f"matrix ({m}, {n}) exceeds the kernel's grid")
     rowp = torch.empty((B, m, nj), dtype=acc_dtype, device=x.device)
     colp = torch.empty((B, mi, n), dtype=acc_dtype, device=x.device)
     if B == 0 or m == 0 or n == 0:

@@ -43,20 +43,22 @@ def tile_sums_batch(x: torch.Tensor, *,
 
 def tile_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(row_sums (m,), col_sums (n,)) of x (m, n) in one pass over x,
-    accumulated in float32 (float64 for float64 input)."""
-    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
-    row, col = tile_sums_batch(x[None], acc_dtype=acc)
+    accumulated in float32 whatever x's type, as the reference's
+    ``tile_sums``; :func:`tile_sums_batch` is the entry that names
+    another accumulator."""
+    row, col = tile_sums_batch(x[None], acc_dtype=torch.float32)
     return row[0], col[0]
 
 
 def verify_checksums(cf: torch.Tensor, rtol: float = 1e-6,
                      atol: float = 1e-4):
     """Kernel-backed verdict for a full-checksum matrix cf (m+1, n+1).
-    Returns (ok, row_resid (m,), col_resid (n,)) like ref.verify_ref."""
+    Returns (ok, row_resid (m,), col_resid (n,)) like ref.verify_ref:
+    sums, residuals and scale in float32 whatever cf's type."""
     row_sums, col_sums = tile_sums(cf[:-1, :-1])
-    row_resid = cf[:-1, -1].to(row_sums.dtype) - row_sums
-    col_resid = cf[-1, :-1].to(col_sums.dtype) - col_sums
-    scale = torch.clamp(cf.abs().max().to(row_sums.dtype), min=1.0)
+    row_resid = cf[:-1, -1].to(torch.float32) - row_sums
+    col_resid = cf[-1, :-1].to(torch.float32) - col_sums
+    scale = torch.clamp(cf.abs().max().to(torch.float32), min=1.0)
     tol = atol + rtol * scale
     ok = (row_resid.abs().max() <= tol) & (col_resid.abs().max() <= tol)
     return ok, row_resid, col_resid

@@ -27,22 +27,36 @@
 //   operands allow (even row strides, aligned starts), else 8-byte ones;
 //   the ragged edge is zero-filled on load (copy size 0 or 8 of 16) and not
 //   stored.
-// * f32 and bf16 (f32 accumulator) -> abft_mm_kernel, plain FMA on the
-//   CUDA cores: float32 products stay exact IEEE, not TF32, which would
-//   miss the f32 checks. Operands are staged through shared memory in
-//   16-deep slabs and every thread keeps a 4 x 4 accumulator. Neither type
-//   runs on the sweep, which calls gemm_batch in f64 only.
+// * every other (input, accumulator) pair -> abft_mm_kernel, plain FMA on
+//   the CUDA cores in the accumulator's type: inputs f16, bf16, f32 or f64,
+//   accumulator f32 or f64, each element converted to the accumulator as it
+//   loads (the reference's astype / preferred_element_type). float32
+//   products stay exact IEEE, not TF32, which would miss the f32 checks.
+//   Operands are staged through shared memory in 16-deep slabs and every
+//   thread keeps a 4 x 4 accumulator. None of these runs on the sweep,
+//   which calls gemm_batch in f64 only; abft_matmul takes f32 (the
+//   reference accumulates in f32 whatever its inputs).
+//
+// Both operands have one type: the caller promotes the narrower of two
+// to the wider (exact, as jnp.dot's promotion). C is written in the input
+// type, or in the accumulator's when the caller asks for it (c_acc): a C
+// of a third type (a's, narrower than the promoted operands) is then one
+// rounding of the accumulator away, taken by the caller.
 //
 // Both keep the 64 x 64 tile, so the partials' layout does not depend on
-// the type. The epilogue is fused and repeatable: C and the tile's row and
+// the type. Column tiles are grid x; row tiles are grid y, at most 65535 a
+// launch, so a taller a is cut into launches of 65535 row tiles each. The epilogue is fused and repeatable: C and the tile's row and
 // column sums are taken from the accumulator registers before the cast,
 // reduced within a warp by shuffles and across warps through shared
 // memory, always in the same order, and across tiles by the caller: no
 // atomics, so results repeat from run to run.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -56,15 +70,29 @@ constexpr int RN = BN / TX;
 static_assert(BM == BN && TX == TY, "the reduction scratch is shared");
 
 template <typename TAcc> __device__ __forceinline__ TAcc to_acc(float v) { return static_cast<TAcc>(v); }
+template <typename TAcc> __device__ __forceinline__ TAcc to_acc(double v) { return static_cast<TAcc>(v); }
 template <typename TAcc> __device__ __forceinline__ TAcc to_acc(__nv_bfloat16 v) {
     return static_cast<TAcc>(__bfloat162float(v));
 }
+template <typename TAcc> __device__ __forceinline__ TAcc to_acc(__half v) {
+    return static_cast<TAcc>(__half2float(v));
+}
 
+// the accumulator rounded once to the output type
 template <typename TOut, typename TAcc> struct Cast {
     static __device__ __forceinline__ TOut from(TAcc v) { return static_cast<TOut>(v); }
 };
 template <> struct Cast<__nv_bfloat16, float> {
     static __device__ __forceinline__ __nv_bfloat16 from(float v) { return __float2bfloat16(v); }
+};
+template <> struct Cast<__nv_bfloat16, double> {
+    static __device__ __forceinline__ __nv_bfloat16 from(double v) { return __double2bfloat16(v); }
+};
+template <> struct Cast<__half, float> {
+    static __device__ __forceinline__ __half from(float v) { return __float2half(v); }
+};
+template <> struct Cast<__half, double> {
+    static __device__ __forceinline__ __half from(double v) { return __double2half(v); }
 };
 
 template <typename TIn, typename TAcc, typename TOut>
@@ -158,18 +186,29 @@ abft_mm_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
     }
 }
 
+// row tiles of one launch: CUDA's limit on grid y
+constexpr int MAX_ROW_TILES = 65535;
+
 template <typename TIn, typename TAcc, typename TOut>
 int launch(const void* a, const void* b, void* c, void* rowp, void* colp,
            int m, int k, int n, long long lda, long long ldb, long long ldc, void* stream)
 {
     if (m <= 0 || n <= 0) return 0;
     const dim3 block(TX, TY);
-    const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-    abft_mm_kernel<TIn, TAcc, TOut><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const TIn*>(a), static_cast<const TIn*>(b), static_cast<TOut*>(c),
-        static_cast<TAcc*>(rowp), static_cast<TAcc*>(colp), m, k, n, lda, ldb, ldc,
-        static_cast<int>(grid.x));
-    return static_cast<int>(cudaGetLastError());
+    const int nj = (n + BN - 1) / BN;
+    // rows r0 .. r0 + rows of a, c and rowp, and row tile r0 / BM of colp
+    for (long long r0 = 0; r0 < m; r0 += static_cast<long long>(MAX_ROW_TILES) * BM) {
+        const long long left = m - r0, most = static_cast<long long>(MAX_ROW_TILES) * BM;
+        const int rows = static_cast<int>(left < most ? left : most);
+        const dim3 grid(nj, (rows + BM - 1) / BM);
+        abft_mm_kernel<TIn, TAcc, TOut><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const TIn*>(a) + r0 * lda, static_cast<const TIn*>(b),
+            static_cast<TOut*>(c) + r0 * ldc, static_cast<TAcc*>(rowp) + r0 * nj,
+            static_cast<TAcc*>(colp) + r0 / BM * n, rows, k, n, lda, ldb, ldc, nj);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return 0;
 }
 
 
@@ -415,16 +454,16 @@ abft_mm_f64_dmma_kernel(const double* __restrict__ a, const double* __restrict__
 
 template <bool VEC>
 int launch(const void* a, const void* b, void* c, void* rowp, void* colp,
-           int m, int k, int n, long long lda, long long ldb, long long ldc, void* stream)
+           int m, int k, int n, long long lda, long long ldb, long long ldc, int nj,
+           void* stream)
 {
     const cudaError_t err = cudaFuncSetAttribute(
         abft_mm_f64_dmma_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+    const dim3 grid(nj, (m + BM - 1) / BM);
     abft_mm_f64_dmma_kernel<VEC><<<grid, NT, SMEM, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const double*>(a), static_cast<const double*>(b), static_cast<double*>(c),
-        static_cast<double*>(rowp), static_cast<double*>(colp), m, k, n, lda, ldb, ldc,
-        static_cast<int>(grid.x));
+        static_cast<double*>(rowp), static_cast<double*>(colp), m, k, n, lda, ldb, ldc, nj);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -434,39 +473,72 @@ int launch_f64(const void* a, const void* b, void* c, void* rowp, void* colp,
                int m, int k, int n, long long lda, long long ldb, long long ldc, void* stream)
 {
     if (m <= 0 || n <= 0) return 0;
-    // 16-byte copies need 16-byte aligned starts and even row strides
-    const bool vec = reinterpret_cast<uintptr_t>(a) % 16 == 0
-                     && reinterpret_cast<uintptr_t>(b) % 16 == 0
-                     && lda % 2 == 0 && ldb % 2 == 0;
-    return vec ? dmma::launch<true>(a, b, c, rowp, colp, m, k, n, lda, ldb, ldc, stream)
-               : dmma::launch<false>(a, b, c, rowp, colp, m, k, n, lda, ldb, ldc, stream);
+    const int nj = (n + BN - 1) / BN;
+    for (long long r0 = 0; r0 < m; r0 += static_cast<long long>(MAX_ROW_TILES) * BM) {
+        const long long left = m - r0, most = static_cast<long long>(MAX_ROW_TILES) * BM;
+        const int rows = static_cast<int>(left < most ? left : most);
+        const double* ar = static_cast<const double*>(a) + r0 * lda;
+        // 16-byte copies need 16-byte aligned starts and even row strides
+        const bool vec = reinterpret_cast<uintptr_t>(ar) % 16 == 0
+                         && reinterpret_cast<uintptr_t>(b) % 16 == 0
+                         && lda % 2 == 0 && ldb % 2 == 0;
+        double* cr = static_cast<double*>(c) + r0 * ldc;
+        double* rr = static_cast<double*>(rowp) + r0 * nj;
+        double* cp = static_cast<double*>(colp) + r0 / BM * n;
+        const int err = vec ? dmma::launch<true>(ar, b, cr, rr, cp, rows, k, n, lda, ldb, ldc, nj, stream)
+                            : dmma::launch<false>(ar, b, cr, rr, cp, rows, k, n, lda, ldb, ldc, nj, stream);
+        if (err != 0) return err;
+    }
+    return 0;
+}
+
+// one (input, accumulator) pair: C in the input type, or in the
+// accumulator's where c_acc is set and the two differ (only f32 and f64
+// inputs, the types a promoted pair of operands can have)
+template <typename TIn, typename TAcc>
+int launch_pair(const void* a, const void* b, void* c, void* rowp, void* colp,
+                int m, int k, int n, long long lda, long long ldb, long long ldc, int c_acc,
+                void* stream)
+{
+    if constexpr (std::is_same<TIn, double>::value && std::is_same<TAcc, double>::value) {
+        return launch_f64(a, b, c, rowp, colp, m, k, n, lda, ldb, ldc, stream);
+    } else {
+        if constexpr (!std::is_same<TIn, TAcc>::value && sizeof(TIn) >= 4) {
+            if (c_acc)
+                return launch<TIn, TAcc, TAcc>(a, b, c, rowp, colp, m, k, n, lda, ldb, ldc, stream);
+        }
+        return launch<TIn, TAcc, TIn>(a, b, c, rowp, colp, m, k, n, lda, ldb, ldc, stream);
+    }
 }
 
 }  // namespace
 
-// One entry point per (input type, accumulator type); the output has the
-// input's type. a is (m, k) with row stride lda, b is (k, n) with ldb, c is
-// (m, n) with ldc, all with unit column stride; rowp is (m, ceil(n / BN))
-// and colp is (ceil(m / BM), n), contiguous, in the accumulator type.
-// Returns cudaGetLastError() of the launch.
+// One entry point per (input type, accumulator type), abft_mm_<in>_<acc>
+// for inputs f16, bf16, f32, f64 and accumulators f32, f64; C has the input
+// type, or the accumulator's where c_acc is set (f32 and f64 inputs). a is
+// (m, k) with row stride lda, b is (k, n) with ldb, c is (m, n) with ldc,
+// all with unit column stride; rowp is (m, ceil(n / BN)) and colp is
+// (ceil(m / BM), n), contiguous, in the accumulator type.
+// Returns cudaGetLastError() of the launches.
 extern "C" {
 
 int abft_mm_tile_m() { return BM; }
 int abft_mm_tile_n() { return BN; }
 
-int abft_mm_f32(const void* a, const void* b, void* c, void* rowp, void* colp, int m, int k, int n,
-                long long lda, long long ldb, long long ldc, void* stream) {
-    return launch<float, float, float>(a, b, c, rowp, colp, m, k, n, lda, ldb, ldc, stream);
-}
-
-int abft_mm_bf16(const void* a, const void* b, void* c, void* rowp, void* colp, int m, int k, int n,
-                 long long lda, long long ldb, long long ldc, void* stream) {
-    return launch<__nv_bfloat16, float, __nv_bfloat16>(a, b, c, rowp, colp, m, k, n, lda, ldb, ldc, stream);
-}
-
-int abft_mm_f64(const void* a, const void* b, void* c, void* rowp, void* colp, int m, int k, int n,
-                long long lda, long long ldb, long long ldc, void* stream) {
-    return launch_f64(a, b, c, rowp, colp, m, k, n, lda, ldb, ldc, stream);
-}
+#define ABFT_MM_ENTRY(NAME, TIN, TACC)                                                         \
+    int NAME(const void* a, const void* b, void* c, void* rowp, void* colp, int m, int k,      \
+             int n, long long lda, long long ldb, long long ldc, int c_acc, void* stream) {    \
+        return launch_pair<TIN, TACC>(a, b, c, rowp, colp, m, k, n, lda, ldb, ldc, c_acc,      \
+                                      stream);                                                  \
+    }
+ABFT_MM_ENTRY(abft_mm_f16_f32, __half, float)
+ABFT_MM_ENTRY(abft_mm_f16_f64, __half, double)
+ABFT_MM_ENTRY(abft_mm_bf16_f32, __nv_bfloat16, float)
+ABFT_MM_ENTRY(abft_mm_bf16_f64, __nv_bfloat16, double)
+ABFT_MM_ENTRY(abft_mm_f32_f32, float, float)
+ABFT_MM_ENTRY(abft_mm_f32_f64, float, double)
+ABFT_MM_ENTRY(abft_mm_f64_f32, double, float)
+ABFT_MM_ENTRY(abft_mm_f64_f64, double, double)
+#undef ABFT_MM_ENTRY
 
 }  // extern "C"

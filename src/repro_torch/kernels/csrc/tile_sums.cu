@@ -8,9 +8,16 @@
 //
 // What bounds it on this card: bytes. Two additions per element read.
 //
+// Inputs f16, bf16, f32 or f64, accumulated in f32 or f64, each element
+// converted to the accumulator as it loads (the reference's
+// x.astype(acc_dtype)).
+//
 // What the design does about that: every element is loaded exactly once,
 // 32 neighbouring threads on 32 neighbouring columns, with RM x RN
-// independent loads in flight per thread; the batch is a grid axis; and x
+// independent loads in flight per thread; the tiles of one matrix are
+// grid x and the batch is grid y (at most 65535 matrices a launch, so a
+// longer stack is cut into launches), so no count of tiles or matrices
+// refuses a shape; and x
 // is addressed through its three strides, so the data block of a stack of
 // full-checksum matrices (V[:, :-1, :-1]) is read in place instead of
 // being copied first. A block reduces its TM x TN tile to TM row partials
@@ -19,6 +26,7 @@
 // partials across tiles. No atomics, so results repeat from run to run.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -36,6 +44,9 @@ template <typename TAcc> __device__ __forceinline__ TAcc to_acc(double v) { retu
 template <typename TAcc> __device__ __forceinline__ TAcc to_acc(__nv_bfloat16 v) {
     return static_cast<TAcc>(__bfloat162float(v));
 }
+template <typename TAcc> __device__ __forceinline__ TAcc to_acc(__half v) {
+    return static_cast<TAcc>(__half2float(v));
+}
 
 template <typename TIn, typename TAcc>
 __global__ void __launch_bounds__(TX * TY)
@@ -45,8 +56,8 @@ tile_sums_kernel(const TIn* __restrict__ x, TAcc* __restrict__ rowp, TAcc* __res
     __shared__ TAcc red[TY][TN];
 
     const int tx = threadIdx.x, ty = threadIdx.y;
-    const long long bidx = blockIdx.x;
-    const int ti = blockIdx.y, tj = blockIdx.z;
+    const long long bidx = blockIdx.y;
+    const int ti = static_cast<int>(blockIdx.x) / nj, tj = static_cast<int>(blockIdx.x) % nj;
     const int row0 = ti * TM, col0 = tj * TN;
     const TIn* xb = x + bidx * sb;
 
@@ -89,37 +100,45 @@ int launch(const void* x, void* rowp, void* colp, int batch, int m, int n,
     if (batch <= 0 || m <= 0 || n <= 0) return 0;
     const int mi = (m + TM - 1) / TM, nj = (n + TN - 1) / TN;
     const dim3 block(TX, TY);
-    const dim3 grid(batch, mi, nj);
-    tile_sums_kernel<TIn, TAcc><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const TIn*>(x), static_cast<TAcc*>(rowp), static_cast<TAcc*>(colp),
-        m, n, sb, sm, sn, mi, nj);
-    return static_cast<int>(cudaGetLastError());
+    // matrices b0 .. b0 + 65535 of the stack in one launch
+    constexpr int MAX_BATCH = 65535;
+    for (long long b0 = 0; b0 < batch; b0 += MAX_BATCH) {
+        const long long left = batch - b0;
+        const dim3 grid(mi * nj, static_cast<unsigned>(left < MAX_BATCH ? left : MAX_BATCH));
+        tile_sums_kernel<TIn, TAcc><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const TIn*>(x) + b0 * sb, static_cast<TAcc*>(rowp) + b0 * m * nj,
+            static_cast<TAcc*>(colp) + b0 * mi * n, m, n, sb, sm, sn, mi, nj);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return 0;
 }
 
 }  // namespace
 
-// One entry point per (input type, accumulator type). x is (batch, m, n)
-// with element strides (sb, sm, sn); rowp is (batch, m, ceil(n / TN)) and
-// colp is (batch, ceil(m / TM), n), contiguous, in the accumulator type.
-// Returns cudaGetLastError() of the launch.
+// One entry point per (input type, accumulator type), tile_sums_<in>_<acc>
+// for inputs f16, bf16, f32, f64 and accumulators f32, f64. x is (batch,
+// m, n) with element strides (sb, sm, sn); rowp is (batch, m, ceil(n / TN))
+// and colp is (batch, ceil(m / TM), n), contiguous, in the accumulator type.
+// Returns cudaGetLastError() of the launches.
 extern "C" {
 
 int tile_sums_tile_m() { return TM; }
 int tile_sums_tile_n() { return TN; }
 
-int tile_sums_f32(const void* x, void* rowp, void* colp, int batch, int m, int n,
-                  long long sb, long long sm, long long sn, void* stream) {
-    return launch<float, float>(x, rowp, colp, batch, m, n, sb, sm, sn, stream);
-}
-
-int tile_sums_bf16(const void* x, void* rowp, void* colp, int batch, int m, int n,
-                   long long sb, long long sm, long long sn, void* stream) {
-    return launch<__nv_bfloat16, float>(x, rowp, colp, batch, m, n, sb, sm, sn, stream);
-}
-
-int tile_sums_f64(const void* x, void* rowp, void* colp, int batch, int m, int n,
-                  long long sb, long long sm, long long sn, void* stream) {
-    return launch<double, double>(x, rowp, colp, batch, m, n, sb, sm, sn, stream);
-}
+#define TILE_SUMS_ENTRY(NAME, TIN, TACC)                                                    \
+    int NAME(const void* x, void* rowp, void* colp, int batch, int m, int n, long long sb,  \
+             long long sm, long long sn, void* stream) {                                    \
+        return launch<TIN, TACC>(x, rowp, colp, batch, m, n, sb, sm, sn, stream);           \
+    }
+TILE_SUMS_ENTRY(tile_sums_f16_f32, __half, float)
+TILE_SUMS_ENTRY(tile_sums_f16_f64, __half, double)
+TILE_SUMS_ENTRY(tile_sums_bf16_f32, __nv_bfloat16, float)
+TILE_SUMS_ENTRY(tile_sums_bf16_f64, __nv_bfloat16, double)
+TILE_SUMS_ENTRY(tile_sums_f32_f32, float, float)
+TILE_SUMS_ENTRY(tile_sums_f32_f64, float, double)
+TILE_SUMS_ENTRY(tile_sums_f64_f32, double, float)
+TILE_SUMS_ENTRY(tile_sums_f64_f64, double, double)
+#undef TILE_SUMS_ENTRY
 
 }  // extern "C"

@@ -36,9 +36,9 @@ SHAPES = [
 SUM_SHAPES = [(128, 128), (64, 256), (100, 70), (9, 5), (257, 127)]
 
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
-        "float64": jnp.float64}
+        "float64": jnp.float64, "float16": jnp.float16}
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "float64": torch.float64}
+          "float64": torch.float64, "float16": torch.float16}
 
 
 def _tol(dtype):
@@ -218,3 +218,141 @@ class TestChecksumVerify:
                                        atol=1e-2)
             np.testing.assert_allclose(_np(got[1]), _np(cr_r), rtol=1e-4,
                                        atol=1e-2)
+
+
+class TestFloat64AccumulatesInFloat32:
+    """The reference's ``abft_matmul``, ``abft_matmul_full``, ``tile_sums``
+    and ``verify_checksums`` call their Pallas kernels with the default
+    float32 accumulator whatever the input, float64 included, and
+    ``verify_checksums`` forms float32 residuals and scale: the port gives
+    the same dtypes and, within the float32 tolerance, the same values."""
+
+    def test_abft_matmul_and_full_matrix(self):
+        rng = np.random.default_rng(40)
+        a64, b64 = rng.normal(size=(40, 30)), rng.normal(size=(30, 20))
+        with jax.enable_x64(True):
+            aj, at = _pair(a64, "float64")
+            bj, bt = _pair(b64, "float64")
+            want = (*ref_mm.abft_matmul(aj, bj, interpret=True),
+                    ref_mm.abft_matmul_full(aj, bj, interpret=True))
+            want_dtypes = [str(x.dtype) for x in want]
+            want = [_np(x) for x in want]
+        got = (*mm.abft_matmul(at, bt), mm.abft_matmul_full(at, bt))
+        assert [str(x.dtype)[6:] for x in got] == want_dtypes \
+            == ["float64", "float32", "float32", "float32"]
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(_np(g), w, **_tol("float32"))
+
+    def test_tile_sums_and_verify_checksums(self):
+        rng = np.random.default_rng(41)
+        x64 = rng.normal(size=(33, 17))
+        # a clean full-checksum matrix, and the same with one element moved
+        data = rng.normal(size=(20, 12))
+        clean = np.zeros((21, 13))
+        clean[:-1, :-1] = data
+        clean[:-1, -1] = data.sum(1)
+        clean[-1, :-1] = data.sum(0)
+        clean[-1, -1] = data.sum()
+        tampered = clean.copy()
+        tampered[4, 7] += 3.0
+        with jax.enable_x64(True):
+            xj, xt = _pair(x64, "float64")
+            want = list(ref_cv.tile_sums(xj, interpret=True))
+            verdicts = []
+            for cf in (clean, tampered):
+                cfj, _ = _pair(cf, "float64")
+                ok, rr, cr = ref_cv.verify_checksums(cfj, interpret=True)
+                verdicts.append(bool(ok))
+                want += [rr, cr]
+            want_dtypes = [str(x.dtype) for x in want]
+            want = [_np(x) for x in want]
+        got = list(cv.tile_sums(xt))
+        for cf, verdict in zip((clean, tampered), verdicts):
+            ok, rr, cr = cv.verify_checksums(
+                torch.from_numpy(cf).to(torch.float64))
+            assert bool(ok) == verdict
+            got += [rr, cr]
+        assert verdicts == [True, False]
+        assert [str(x.dtype)[6:] for x in got] == want_dtypes \
+            == ["float32"] * 6
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(_np(g), w, **_tol("float32"))
+
+
+# two ulps of float16's rounding of C (2^-10 of the value each)
+_F16_TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+class TestEveryInputType:
+    """The inputs the reference's wrappers and Pallas kernels (interpret
+    mode) take beyond float32, bfloat16 and float64 alone: float16, two
+    operand types at once, and a stack summed in another accumulator than
+    its own type."""
+
+    @pytest.mark.parametrize("a_dtype,b_dtype", [
+        ("float16", "float16"), ("float16", "float32"),
+        ("float32", "bfloat16"), ("bfloat16", "float16")])
+    @pytest.mark.parametrize("m,k,n", [(100, 130, 70), (8, 8, 8)])
+    def test_abft_matmul(self, m, k, n, a_dtype, b_dtype):
+        rng = np.random.default_rng(m * 7 + k * 3 + n)
+        aj, at = _pair(rng.normal(size=(m, k)), a_dtype)
+        bj, bt = _pair(rng.normal(size=(k, n)), b_dtype)
+        cr, rowr, colr = ref_mm.abft_matmul(aj, bj, interpret=True)
+        c, row, col = mm.abft_matmul(at, bt)
+        assert str(c.dtype)[6:] == str(cr.dtype) == a_dtype
+        assert row.dtype == col.dtype == torch.float32 == _TORCH[
+            str(rowr.dtype)]
+        # C rounds to a's type; both sides accumulate the same values in
+        # float32
+        tol = _F16_TOL if a_dtype == "float16" else _tol(a_dtype)
+        np.testing.assert_allclose(_np(c), _np(cr), **tol)
+        for g, w in ((row, rowr), (col, colr)):
+            np.testing.assert_allclose(_np(g), _np(w), rtol=1e-4,
+                                       atol=1e-3 * k)
+
+    @pytest.mark.parametrize("m,n", [(100, 70), (9, 5), (257, 127)])
+    def test_tile_sums_float16(self, m, n):
+        rng = np.random.default_rng(m * 11 + n)
+        xj, xt = _pair(rng.normal(size=(m, n)), "float16")
+        rowr, colr = ref_cv.tile_sums(xj, interpret=True)
+        row, col = cv.tile_sums(xt)
+        assert row.dtype == col.dtype == torch.float32
+        np.testing.assert_allclose(_np(row), _np(rowr), rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(_np(col), _np(colr), rtol=1e-4, atol=1e-3)
+
+    @pytest.mark.parametrize("dtype,acc", [
+        ("float32", "float64"), ("float16", "float64"),
+        ("float64", "float32"), ("float16", "float32")])
+    def test_tile_sums_batch_in_another_accumulator(self, dtype, acc):
+        rng = np.random.default_rng(7)
+        with jax.enable_x64(True):
+            vj, vt = _pair(rng.normal(size=(3, 33, 33)), dtype)
+            vj, vt = vj[:, :-1, :-1], vt[:, :-1, :-1]
+            rowr, colr = ref_cv.tile_sums_batch(
+                vj, acc_dtype=_JNP[acc], use_pallas=True, interpret=True)
+            assert str(rowr.dtype) == acc
+            rowr, colr = _np(rowr), _np(colr)
+        row, col = cv.tile_sums_batch(vt, acc_dtype=_TORCH[acc])
+        assert row.dtype == col.dtype == _TORCH[acc]
+        np.testing.assert_allclose(_np(row), rowr, **_tol(acc))
+        np.testing.assert_allclose(_np(col), colr, **_tol(acc))
+
+    def test_kernel_wrappers_take_every_type_pair(self):
+        """On CPU tensors every type pair reaches the device check, the
+        first thing the launchers refuse now, beside shapes."""
+        for a_dtype, b_dtype, acc in (
+                (torch.float16, torch.float16, torch.float32),
+                (torch.float16, torch.float32, torch.float64),
+                (torch.float64, torch.float64, torch.float32),
+                (torch.bfloat16, torch.float64, torch.float32)):
+            with pytest.raises(ValueError, match="CUDA"):
+                mm_kernel.abft_matmul_cuda(torch.zeros(4, 3, dtype=a_dtype),
+                                           torch.zeros(3, 2, dtype=b_dtype),
+                                           acc_dtype=acc)
+            with pytest.raises(ValueError, match="CUDA"):
+                cv_kernel.tile_sums_cuda(torch.zeros(1, 4, 3, dtype=a_dtype),
+                                         acc_dtype=acc)
+        assert set(mm_kernel._ENTRY) == set(cv_kernel._ENTRY) == {
+            (t, acc) for t in (torch.float16, torch.bfloat16, torch.float32,
+                               torch.float64)
+            for acc in (torch.float32, torch.float64)}
