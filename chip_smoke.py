@@ -142,7 +142,15 @@ Phases, each printing one JSON line:
            them over "model", within 2 bf16 ulps of the layer output's
            largest value of one card's layer, each B3 launch held to its
            plain version, and each rank's materialised weight bytes beside
-           the whole layer's; one deepseek-v2-lite-16b MoE layer (64
+           the whole layer's; phi4-mini-3.8b's attention layer at full
+           width through ``attention_body`` for the 16 ranks of tp = 16,
+           which does not tile its 24 query heads: 8 blocks of 3 heads, 2
+           ranks a block, each rank scoring its block's 3 heads from the
+           block's columns of wq and multiplying its share of their output
+           by its own rows of wo, the 16 outputs summed against one card's
+           plain layer within the same 2 bf16 ulps, each rank's scored
+           heads, score bytes, peak memory and ms beside the whole
+           layer's; one deepseek-v2-lite-16b MoE layer (64
            experts, 16 per rank, K = 6; 2 x 1024 tokens, float32) through
            the EP body of 4 ranks, each handed its own 16 experts' stacks,
            with an all-to-all between threads of this script, equal to
@@ -453,6 +461,11 @@ MESH_EP_ATOL = 1e-5
 # product rounded once, as the whole layer's is; their float32 sum adds
 # at most the roundings of the four shares
 MESH_LAYER_RTOL = 2 * 2.0 ** -7
+# the head blocks of a TP degree that does not tile the query heads:
+# phi4-mini-3.8b's attention layer at the production TP of 16 (24 heads:
+# gcd(24, 16) = 8 blocks of 3, 2 ranks a block), held by the same rule
+MESH_BLOCK_ARCH = "phi4-mini-3.8b"
+MESH_BLOCK_TP = 16
 
 # the mesh_train phase: (arch, depth cuts, sequence, crash and restart) of
 # the trainers held to the one-card trainer through a mesh of one rank
@@ -1185,8 +1198,9 @@ GRID_Y_MAX = 65535
 def _flash_routes(dev) -> list:
     """B3's routes beyond the main path's (``FLASH_ROUTE_CASES``), each
     held to its plain version at ``fa_kernel.tolerance`` and timed beside
-    its bound, the plain version and SDPA where SDPA computes the same
-    function (one dtype; not float64, which SDPA computes in float64)."""
+    its bound, the plain version and SDPA (on one dtype as it is; on
+    float64 or mixed inputs, which SDPA would compute otherwise, on the
+    float32 casts the wrapper makes)."""
     out = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for label, (B, S, H, KV, hd), qd, kvd in FLASH_ROUTE_CASES:
@@ -1206,6 +1220,9 @@ def _flash_routes(dev) -> list:
         del got
         same = qd == kvd and qd != torch.float64
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        # SDPA on one dtype, else on the float32 casts the wrapper makes
+        lq, lk, lv = ((qt, kt, vt) if same else
+                      (t.to(torch.float32) for t in (qt, kt, vt)))
         out.append({
             "case": label, "shape": f"q ({B},{S},{H},{hd}), k/v "
                                     f"({B},{S},{KV},{hd}), causal",
@@ -1219,12 +1236,12 @@ def _flash_routes(dev) -> list:
                 lambda: fa_kernel.flash_attention_plain(q, k, v), 3),
             **_flash_bound(B, S, H, KV, hd, True, q.element_size(),
                            k.element_size(), _peak_type(qd, kvd)),
-            "library_ms": (time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                                enable_gqa=True), 10)
-                           if same else None),
+            "library_ms": time_ms(lambda: sdpa(lq, lk, lv, is_causal=True,
+                                               enable_gqa=True), 10),
             "library_call": ("torch.nn.functional.scaled_dot_product_"
-                             "attention" if same else None)})
-        del q, k, v, qt, kt, vt
+                             "attention" + ("" if same else
+                                            " on the float32 casts"))})
+        del q, k, v, qt, kt, vt, lq, lk, lv
         torch.cuda.empty_cache()
     return out
 
@@ -1233,8 +1250,9 @@ def _matmul_routes(dev) -> list:
     """B1's type pairs beyond the sweep's f64, at the sweep's shape (256,
     4096) @ (4096, 4096), and a product of more row tiles than one launch
     takes; each against its plain version at ``_mm_tolerance``, timed
-    beside its bound, the plain version and torch.matmul where that
-    computes the same function (one type, accumulated in float32)."""
+    beside its bound, the plain version and torch.matmul (on one type
+    below float64 as it is, otherwise on the casts to the accumulator's
+    type, the operands the kernel multiplies)."""
     out = []
     f16, f32, f64 = torch.float16, torch.float32, torch.float64
     tall = GRID_Y_MAX * 64 + 71
@@ -1273,7 +1291,10 @@ def _matmul_routes(dev) -> list:
                   + (m + n) * torch.empty(0, dtype=acc).element_size())
         by_ops = flops / PEAK_FLOPS[_peak_type(wide)]
         by_bytes = nbytes / PEAK_BYTES_PER_S
-        lib = ad == bd and acc == f32 and ad != f64
+        # torch.matmul on the operands as the kernel promotes them: one
+        # type below f64 as they are, otherwise cast to the accumulator's
+        same = ad == bd and ad != f64
+        la, lb = (a, b) if same else (a.to(acc), b.to(acc))
         out.append({
             "case": label, "shape": f"({m},{k})@({k},{n})",
             "launches": NO_ARCH, "launches_in_check": launches,
@@ -1283,10 +1304,10 @@ def _matmul_routes(dev) -> list:
                 a, b, acc_dtype=acc), 10),
             "bound_ms": 1e3 * max(by_ops, by_bytes),
             "bound_by": "operations" if by_ops >= by_bytes else "bytes",
-            "library_ms": time_ms(lambda: torch.matmul(a, b), 10)
-            if lib else None,
-            "library_call": "torch.matmul" if lib else None})
-        del a, b
+            "library_ms": time_ms(lambda: torch.matmul(la, lb), 10),
+            "library_call": "torch.matmul" + (
+                "" if same else f" on the {str(acc)[6:]} casts")})
+        del a, b, la, lb
         torch.cuda.empty_cache()
     return out
 
@@ -3445,6 +3466,93 @@ def _mesh_tp_layer(cfg, B: int, S: int) -> dict:
             "rank_body_ms": rank_ms, "whole_layer_ms": whole_ms}
 
 
+def _mesh_head_blocks_layer() -> dict:
+    """phi4-mini-3.8b's attention layer (seeded float32 weights, bf16
+    input of SERVE_BATCH x SERVE_PROMPT) through ``attention_body`` for
+    each of the MESH_BLOCK_TP ranks, one after another: each rank its
+    head block's columns of wq (its own and its block partners', as
+    ``layers.gather_block`` gathers them), its own rows of wo, wk / wv
+    whole; plain attention, as the reference's where the heads do not
+    tile. Their outputs summed in float32 stand for the mesh's sum over
+    "model"; held to one card's plain layer within MESH_LAYER_RTOL of its
+    largest value. Each rank's scored heads (``layers._sdpa``'s q), score
+    bytes (float32 logits) and peak memory beside the whole layer's."""
+    from types import SimpleNamespace
+    dev = torch.device("cuda")
+    cfg = get_config(MESH_BLOCK_ARCH)
+    B, S, tp = SERVE_BATCH, SERVE_PROMPT, MESH_BLOCK_TP
+    g, m = layers_mod.head_blocks(cfg.n_heads, tp)
+    p = layers_mod.Attention(cfg, device=dev)
+    p.init_(torch.Generator(device=dev).manual_seed(MESH_SEED + 4))
+    x = torch.randn((B, S, cfg.d_model), device=dev, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=dev)
+                    .manual_seed(MESH_SEED + 5))
+    positions = torch.arange(S, device=dev)[None, :].expand(B, S)
+    cols, rows = p.wq.chunk(tp, 1), p.wo.chunk(tp, 0)
+    ranks = [SimpleNamespace(wq=torch.cat(cols[r // m * m:(r // m + 1) * m],
+                                          1), wk=p.wk, wv=p.wv, wo=rows[r])
+             for r in range(tp)]
+    seen = []
+    sdpa = layers_mod._sdpa
+
+    def spy(q, *a, **k):
+        seen.append(int(q.shape[2]))
+        return sdpa(q, *a, **k)
+
+    def body(r):
+        return layers_mod.attention_body(cfg, ranks[r], x, positions,
+                                         rank=r, tp=tp)[0]
+
+    def peak_gb(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    layers_mod._sdpa = spy
+    try:
+        with torch.no_grad():
+            whole, whole_gb = peak_gb(lambda: layers_mod.attention_apply(
+                cfg, p, x, positions)[0])
+            whole_heads = seen.pop()
+            summed = torch.zeros(whole.shape, device=dev)
+            rank_gb = []
+            for r in range(tp):
+                out, gb = peak_gb(lambda: body(r))
+                summed += out.float()
+                rank_gb.append(gb)
+                del out
+            rank_heads = seen[:]
+            scale = float(whole.float().abs().max())
+            err = check_close("head-block attention layer vs one card's",
+                              summed.to(whole.dtype), whole, 0.0,
+                              MESH_LAYER_RTOL * scale)
+            rank_ms = time_ms(lambda: body(0), 10)
+            whole_ms = time_ms(lambda: layers_mod.attention_apply(
+                cfg, p, x, positions), 10)
+    finally:
+        layers_mod._sdpa = sdpa
+    if rank_heads != [cfg.n_heads // g] * tp:
+        raise AssertionError(f"the ranks scored {rank_heads} heads, not "
+                             f"{cfg.n_heads // g} each")
+    score = lambda h: B * h * S * S * 4        # noqa: E731  float32 logits
+    nbytes = lambda ws: sum(w.numel() * w.element_size() for w in ws)
+    return {"shape": f"x ({B},{S},{cfg.d_model}) bf16, weights f32, "
+                     f"{cfg.n_heads} / {cfg.n_kv_heads} heads, tp {tp}: "
+                     f"{g} blocks of {cfg.n_heads // g} heads, {m} ranks a "
+                     f"block",
+            "max_abs_err_vs_one_card": err, "atol": MESH_LAYER_RTOL * scale,
+            "rank_scored_heads": rank_heads, "whole_scored_heads": whole_heads,
+            "rank_score_bytes": score(rank_heads[0]),
+            "whole_score_bytes": score(whole_heads),
+            "rank_peak_gb": rank_gb, "whole_peak_gb": whole_gb,
+            "rank_weight_bytes": nbytes(vars(ranks[0]).values()),
+            "whole_weight_bytes": nbytes(p.parameters()),
+            "rank_body_ms": rank_ms, "whole_layer_ms": whole_ms}
+
+
 def _mesh_ep_layer() -> dict:
     """One deepseek-v2-lite-16b MoE layer at full width, float32, 2 x 1024
     tokens, through the EP bodies of 4 ranks."""
@@ -3558,6 +3666,9 @@ def phase_mesh(records: list) -> None:
     tp = _mesh_tp_attention()
     gc.collect()
     torch.cuda.empty_cache()
+    blocks = _mesh_head_blocks_layer()
+    gc.collect()
+    torch.cuda.empty_cache()
     ep = _mesh_ep_layer()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3582,7 +3693,8 @@ def phase_mesh(records: list) -> None:
                 "mesh tp bodies": tp["launches"],
                 "mesh llama3-8b prefill": dense_run["launches"][
                     "flash_attention"]})
-    emit({"phase": "mesh", "tp_attention": tp, "ep_layer": ep,
+    emit({"phase": "mesh", "tp_attention": tp, "head_blocks": blocks,
+          "ep_layer": ep,
           "world_1": [moe_run, dense_run]})
 
 

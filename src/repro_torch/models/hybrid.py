@@ -208,7 +208,7 @@ def decode_step(cfg: ModelConfig, lm: HybridLM, cache: Dict, tokens:
     pos = int(pos)
     B = tokens.shape[0]
     rows = L.batch_rows(B, mesh)
-    with L.tp_weights(lm, mesh, skip=("layers",)):
+    with L.tp_weights(lm, mesh, skip=("layers",), decode=True):
         h = LMmod.embed_tokens(cfg, lm.embed, L.local_rows(tokens, rows),
                                mesh)
         ssm = {k: L.local_rows(c, rows, 1) for k, c in cache["ssm"].items()}

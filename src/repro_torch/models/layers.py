@@ -23,14 +23,18 @@ Conventions, as in the JAX package's ``models/layers.py``:
   ``gather_weights``, and never read whole), the input of the split
   products passes :func:`tp_enter` and the row-parallel output
   :func:`tp_reduce`. Attention splits by query heads (the flash branch
-  launches the kernel on the rank's heads, :func:`flash_tp_body`), the
-  SwiGLU by its hidden columns.
+  launches the kernel on the rank's heads, :func:`flash_tp_body`); where
+  the TP degree does not tile them, by blocks of ``H / gcd(H, tp)``
+  heads that ``tp / gcd(H, tp)`` ranks share, as XLA splits the
+  reference's (:func:`head_blocks`). The SwiGLU splits by its hidden
+  columns.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+from types import SimpleNamespace
 from typing import Dict, Iterator, Optional, Tuple
 
 import torch
@@ -45,7 +49,9 @@ __all__ = ["RMSNorm", "rmsnorm", "rope_freqs", "apply_rope", "apply_mrope",
            "tp_body", "tp_enter", "tp_reduce", "vocab_blocks",
            "dp_reduce", "batch_rows", "rows_of", "rows_split", "rows_like",
            "local_as", "local_rows", "seq_split",
-           "heads_tile", "kv_heads", "flash_sdpa", "flash_tp_body",
+           "heads_tile", "kv_heads", "head_blocks", "block_kv",
+           "gather_block",
+           "flash_sdpa", "flash_tp_body",
            "flash_applicable", "Attention", "attention_apply",
            "attention_body",
            "attention_cache_init", "SwiGLU", "swiglu_apply", "dtype_of",
@@ -138,18 +144,19 @@ def gather_weights(lp, axes, mesh):
 
 
 @contextlib.contextmanager
-def tp_weights(module: nn.Module, mesh,
-               skip: Tuple[str, ...] = ()) -> Iterator[None]:
+def tp_weights(module: nn.Module, mesh, skip: Tuple[str, ...] = (), *,
+               decode: bool = False) -> Iterator[None]:
     """While the enclosed code runs across the ranks of a DeviceMesh, each
     parameter of ``module`` (but those under the children named in
     ``skip``) is the part of it this rank's tensor-parallel layer works
     on, ``sharding.partition.tp_local`` by the dim names its module class
     gives in ``AXES``: split over "model" where the class splits at that
-    degree (its ``splits(tp)``, if it has one), with ``Partial`` gradients
-    over "model" for the weights it names in ``TP_PARTIAL``. A DTensor
-    weight is gathered over the other axes; nothing is read whole. The
-    module holds its own parameters again afterwards. Without a
-    DeviceMesh nothing changes."""
+    degree (its ``splits(tp)``, if it has one; :class:`Attention`'s in the
+    decode step where ``decode``), with ``Partial`` gradients over "model"
+    for the weights it names in ``TP_PARTIAL``. A DTensor weight is
+    gathered over the other axes; nothing is read whole. The module holds
+    its own parameters again afterwards. Without a DeviceMesh nothing
+    changes."""
     if not ranked(mesh):
         yield
         return
@@ -161,7 +168,10 @@ def tp_weights(module: nn.Module, mesh,
             continue
         mod, _, attr = name.rpartition(".")
         owner = module.get_submodule(mod)
-        split = owner.splits(tp) if hasattr(owner, "splits") else True
+        if isinstance(owner, Attention):
+            split = owner.splits(tp, decode=decode)
+        else:
+            split = owner.splits(tp) if hasattr(owner, "splits") else True
         owner._parameters[attr] = tp_local(
             w, type(owner).AXES[attr], mesh, split=split,
             partial=split and attr in getattr(owner, "TP_PARTIAL", ()))
@@ -234,6 +244,51 @@ def tp_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
     gradient passed on as it is)."""
     group = _model_group(mesh)
     return x if group is None else _Reduce.apply(x, group)
+
+
+class _GatherCols(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        import torch.distributed as dist
+        ctx.group, ctx.n = group, n
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+        parts = [c.contiguous() for c in grad.chunk(ctx.n, dim=-1)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=ctx.group)
+        return out, None, None
+
+
+def _block_group(mesh, m: int):
+    """The process group of the ``m`` ranks on "model" (this rank among
+    them, in their order there) that share this rank's block of query
+    heads; made once per mesh by those ranks alone."""
+    import torch.distributed as dist
+    d = mesh.mesh_dim_names.index("model")
+    coord = mesh.get_coordinate()
+    line = mesh.mesh[tuple(coord[:d]) + (slice(None),) + tuple(coord[d + 1:])]
+    b = coord[d] // m
+    ranks = line[b * m:(b + 1) * m].tolist()
+    if ranks != sorted(ranks):
+        raise NotImplementedError(f"a block of query heads on ranks {ranks} "
+                                  f"out of their order")
+    groups = mesh.__dict__.setdefault("_head_block_groups", {})
+    if m not in groups:
+        groups[m] = dist.new_group(ranks, use_local_synchronization=True)
+    return groups[m]
+
+
+def gather_block(w: torch.Tensor, mesh, m: int) -> torch.Tensor:
+    """This rank's columns ``w`` of a weight split over "model" gathered
+    with those of the other ranks of its head block (:func:`head_blocks`,
+    ``m`` ranks a block): the block's columns, in rank order. The
+    gradient of each rank's columns is summed over the block's ranks."""
+    return w if m == 1 else _GatherCols.apply(w, _block_group(mesh, m), m)
 
 
 def vocab_blocks(x: torch.Tensor, vocab: int, mesh) -> torch.Tensor:
@@ -482,7 +537,8 @@ def heads_tile(q_heads: int, kv_heads: int, tp: int) -> bool:
     each rank's heads spanning whole KV groups, or lying within one
     (``H_loc % G == 0`` or ``G % H_loc == 0``, ``G = H / KV``): the
     reference's condition for its tensor-parallel flash branch, and the
-    port's for splitting GQA attention by heads."""
+    port's for each rank's heads being its own (:func:`head_blocks`) and
+    for splitting them in the decode step."""
     if q_heads % tp:
         return False
     H_loc = q_heads // tp
@@ -498,6 +554,36 @@ def kv_heads(q_heads: int, kv: int, tp: int, rank: int) -> Tuple[int, int]:
     H_loc = q_heads // tp
     G = q_heads // kv
     return rank * H_loc // G, max(1, -(-H_loc // G))
+
+
+def head_blocks(q_heads: int, tp: int) -> Tuple[int, int]:
+    """(blocks, ranks a block) of ``q_heads`` query heads over the ``tp``
+    ranks of "model": ``g = gcd(H, tp)`` blocks of ``H / g`` consecutive
+    heads, each computed whole by the ``tp / g`` consecutive ranks that
+    hold its columns of ``wq`` (the split XLA gives the reference's
+    attention, whose ``wq`` columns are placed over "model" whatever the
+    heads). Where the heads tile (:func:`heads_tile`) each rank is a
+    block of its own."""
+    g = math.gcd(q_heads, tp)
+    return g, tp // g
+
+
+def block_kv(k: torch.Tensor, q_heads: int, blocks: int,
+             b: int) -> torch.Tensor:
+    """The KV heads (dim 2 of ``k``, all of them) that the query heads of
+    block ``b`` of ``blocks`` read: their contiguous run
+    (:func:`kv_heads`) where the block tiles KV groups or lies within one
+    (``_sdpa`` repeats them to the block's heads), and otherwise the KV
+    head of each query head (query head ``h`` reads ``h // G``), one per
+    query head."""
+    KV = k.shape[2]
+    if heads_tile(q_heads, KV, blocks):
+        kv0, n_kv = kv_heads(q_heads, KV, blocks, b)
+        return k[:, :, kv0:kv0 + n_kv]
+    h_blk = q_heads // blocks
+    idx = torch.arange(b * h_blk, (b + 1) * h_blk,
+                       device=k.device) // (q_heads // KV)
+    return k.index_select(2, idx)
 
 
 def flash_tp_body(q_local: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -604,9 +690,10 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
 
 class Attention(nn.Module):
     """GQA attention weights: wq (D, H*hd), wk/wv (D, KV*hd), wo (H*hd, D).
-    Under tensor parallelism over ``tp`` ranks whose heads tile
-    (:func:`heads_tile`) ``wq`` is split by its columns and ``wo`` by its
-    rows; ``wk`` / ``wv`` stay whole, each rank reading its KV heads."""
+    Under tensor parallelism over ``tp`` ranks ``wq`` is split by its
+    columns and ``wo`` by its rows, ``H*hd / tp`` a rank, as the reference
+    places them (:meth:`splits`); ``wk`` / ``wv`` stay whole, each rank
+    reading the KV heads its query heads read."""
 
     AXES = {"wq": ("embed", "qheads"), "wk": ("embed", "kvheads"),
             "wv": ("embed", "kvheads"), "wo": ("qheads", "embed")}
@@ -616,15 +703,23 @@ class Attention(nn.Module):
         super().__init__()
         D, hd = cfg.d_model, cfg.resolved_head_dim
         H, KV = cfg.n_heads, cfg.n_kv_heads
-        self.n_heads, self.n_kv_heads = H, KV
+        self.n_heads, self.n_kv_heads, self.head_dim = H, KV, hd
         dt = dtype_of(cfg.param_dtype)
         self.wq = empty_weight((D, H * hd), dt, device)
         self.wk = empty_weight((D, KV * hd), dt, device)
         self.wv = empty_weight((D, KV * hd), dt, device)
         self.wo = empty_weight((H * hd, D), dt, device)
 
-    def splits(self, tp: int) -> bool:
-        return heads_tile(self.n_heads, self.n_kv_heads, tp)
+    def splits(self, tp: int, decode: bool = False) -> bool:
+        """Whether ``wq`` / ``wo`` split over ``tp`` ranks: where the heads
+        tile (:func:`heads_tile`), by each rank's heads; otherwise, but in
+        the decode step (which keeps the heads whole, as the reference's
+        ``replicate_attn_heads`` does), in even chunks of ``H*hd`` that
+        need not hold whole heads, each rank computing its block's heads
+        (:func:`head_blocks`)."""
+        if heads_tile(self.n_heads, self.n_kv_heads, tp):
+            return True
+        return not decode and (self.n_heads * self.head_dim) % tp == 0
 
     def init_(self, generator: torch.Generator) -> None:
         for w in (self.wq, self.wk, self.wv, self.wo):
@@ -648,19 +743,27 @@ def attention_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     reference would. ``cache_seq`` is :func:`seq_split` of a cache that
     holds this rank's chunk of the positions. Returns (out, cache).
 
-    Under :func:`tp_weights` on a DeviceMesh whose "model" axis splits the
-    heads, ``p`` holds this rank's columns of ``wq`` and rows of ``wo``:
-    the rank runs :func:`attention_body` on its heads between
+    Under :func:`tp_weights` on a DeviceMesh whose "model" axis splits
+    ``wq`` and ``wo``, ``p`` holds this rank's columns of ``wq`` and rows
+    of ``wo``: the rank gathers its head block's columns of ``wq`` from
+    the ranks that share the block (:func:`gather_block`; none where the
+    heads tile) and runs :func:`attention_body` on the block between
     :func:`tp_enter` and :func:`tp_reduce`, which sums the ranks'
     outputs."""
     H, S = cfg.n_heads, x.shape[1]
-    split = p.wq.shape[-1] // cfg.resolved_head_dim != H
+    split = p.wq.shape[-1] != H * cfg.resolved_head_dim
     tp, idx = _tp(mesh) if split else (1, 0)
     take_flash = (flash and cache is None and cfg.causal
                   and flash_applicable(cfg, H, S, mesh))
+    if split:
+        x = tp_enter(x, mesh)
+        m = head_blocks(H, tp)[1]
+        if m > 1:
+            p = SimpleNamespace(wq=gather_block(p.wq, mesh, m), wk=p.wk,
+                                wv=p.wv, wo=p.wo)
     out, cache = attention_body(
-        cfg, p, tp_enter(x, mesh) if split else x, positions, rank=idx,
-        tp=tp, mrope_positions=mrope_positions, cache=cache,
+        cfg, p, x, positions, rank=idx, tp=tp,
+        mrope_positions=mrope_positions, cache=cache,
         cache_index=cache_index, flash=take_flash, cache_seq=cache_seq)
     return (tp_reduce(out, mesh) if split else out), cache
 
@@ -672,20 +775,25 @@ def attention_body(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                    cache_index: Optional[int] = None, flash: bool = False,
                    cache_seq: Optional[Tuple[int, object]] = None):
     """One rank's attention under tensor parallelism over ``tp`` ranks
-    (the whole layer at ``tp`` 1): ``p.wq`` holds the columns of query
-    heads ``rank * H / tp`` on and ``p.wo`` their rows; ``wk`` / ``wv``
-    are whole, so every KV head is projected and the rank's heads attend
-    over the KV heads they read (:func:`kv_heads`), through the flash
-    kernel (:func:`flash_tp_body`) where ``flash``. A decode cache holds
-    every KV head, or only the rank's (a cache split by heads over
-    "model"), and every position, or the chunk from ``cache_seq[0]`` on
-    (the softmax then reduced over ``cache_seq[1]``). Returns (the rank's
-    share of the output, which the ranks sum; cache)."""
+    (the whole layer at ``tp`` 1). The rank's head block (of ``g``
+    blocks, ``m = tp / g`` ranks a block: :func:`head_blocks`) is query
+    heads ``(rank // m) * H / g`` on: ``p.wq`` holds their columns,
+    ``p.wo`` the rank's ``H*hd / tp`` rows, its share of the block's
+    output (all of it where ``m`` is 1). ``wk`` / ``wv`` are whole, so every KV
+    head is projected and the block attends over the KV heads it reads
+    (:func:`block_kv`), through the flash kernel (:func:`flash_tp_body`)
+    where ``flash`` (the heads then tile). A decode cache holds every KV
+    head, or only the rank's (a cache split by heads over "model"), and
+    every position, or the chunk from ``cache_seq[0]`` on (the softmax
+    then reduced over ``cache_seq[1]``). Returns (the rank's share of the
+    output, which the ranks sum; cache)."""
     B, S, D = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
     H_loc = p.wq.shape[-1] // hd
-    kv0, n_kv = kv_heads(H, KV, tp, rank)
+    g = H // H_loc
+    m = tp // g
+    blk = rank // m
     q = (x @ p.wq.to(x.dtype)).reshape(B, S, H_loc, hd)
     k = (x @ p.wk.to(x.dtype)).reshape(B, S, KV, hd)
     v = (x @ p.wv.to(x.dtype)).reshape(B, S, KV, hd)
@@ -699,6 +807,7 @@ def attention_body(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is not None:
+        kv0, n_kv = kv_heads(H, KV, tp, rank)
         i = int(cache_index)
         heads = slice(kv0, kv0 + n_kv)
         if cache["k"].shape[2] != KV:
@@ -716,9 +825,13 @@ def attention_body(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     elif flash:
         out = flash_tp_body(q, k, v, rank, tp, causal=True)
     else:
-        out = _sdpa(q, k[:, :, kv0:kv0 + n_kv], v[:, :, kv0:kv0 + n_kv],
+        out = _sdpa(q, block_kv(k, H, g, blk), block_kv(v, H, g, blk),
                     causal=cfg.causal)
-    return out.reshape(B, S, H_loc * hd) @ p.wo.to(x.dtype), cache
+    out = out.reshape(B, S, H_loc * hd)
+    if m > 1:
+        c = p.wo.shape[0]
+        out = out[..., (rank % m) * c:(rank % m + 1) * c]
+    return out @ p.wo.to(x.dtype), cache
 
 
 def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int,

@@ -583,7 +583,7 @@ def decode_step(cfg: ModelConfig, lm: LM, cache: Dict[str, torch.Tensor],
         for i, lp in enumerate(lm.layers):
             layer_cache = {name: L.local_rows(c, rows, 1)[i]
                            for name, c in cache.items()}
-            with L.tp_weights(lp, mesh):
+            with L.tp_weights(lp, mesh, decode=True):
                 h, _ = _layer_apply(cfg, lp, h, positions, mesh,
                                     cache=layer_cache, cache_index=pos,
                                     mrope=mrope, ref=ref, cache_seq=seq)

@@ -16,14 +16,28 @@ propagation), the decode step through ``build_serve_step``. Each
 device's shard of the logits is written under its flat mesh coordinate
 (the port's rank at that coordinate), and ``DIR/ref.json`` holds each
 output's ``PartitionSpec`` and each shard's index.
+
+    python tests/mesh_reference.py DIR heads
+    python tests/mesh_reference.py DIR pin16
+
+are ``test_torch_head_groups.py``'s sides: ``heads`` runs, on the four
+devices, each of ``torch_ranks.HEAD_CASES`` on each mesh (the forward and
+decode steps as above, ``jax.grad`` of ``loss_fn`` and three steps of
+``build_train_step`` as ``train_mesh_reference.py`` runs them) and
+``HEAD_KV3``'s forward on 1 x 4; ``pin16`` only compiles
+``HEAD_WIDE``'s forwards on 16 devices at 1 x 16. Both write the heads
+of each compiled score ``dot`` per device (``compiled.as_text()``) to
+``DIR/<mode>.json`` beside ``DIR/<mode>.npz``.
 """
 
 import dataclasses
 import json
 import os
+import re
 import sys
 
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+DEVICES = 16 if sys.argv[2:] == ["pin16"] else 4
+os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={DEVICES}"
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [os.path.join(HERE, os.pardir, "src"), HERE]
 
@@ -31,12 +45,16 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from repro.configs.base import ModelConfig  # noqa: E402
+from repro.configs.base import ModelConfig, TrainConfig  # noqa: E402
+from repro.core.acc_state import flatten_checksums  # noqa: E402
 from repro.launch.mesh import make_mesh  # noqa: E402
-from repro.launch.steps import build_serve_step  # noqa: E402
+from repro.launch.specs import make_batch  # noqa: E402
+from repro.launch.steps import (build_serve_step,  # noqa: E402
+                                build_train_step)
 from repro.models import layers as L  # noqa: E402
 from repro.models import moe  # noqa: E402
 from repro.models.registry import build_model, get_config  # noqa: E402
+from repro.optim import init_error_state  # noqa: E402
 from repro.sharding.partition import (batch_shardings, make_rules,  # noqa: E402
                                       params_shardings)
 from repro.sharding.pipeline import pipeline_apply, stage_params  # noqa: E402
@@ -159,5 +177,129 @@ def main(out_dir: str) -> None:
         json.dump(meta, fh)
 
 
+def _scored_heads(compiled, S: int) -> list:
+    """The heads of each float32 ``dot`` with a trailing (S, S) (the
+    attention scores, their gradients) in a compiled program's text: its
+    per-device shape (B_loc, heads, S, S)."""
+    return [int(d.split(",")[1]) for d in
+            re.findall(r"= f32\[([0-9,]+)\]\S* dot\(", compiled.as_text())
+            if d.split(",")[-2:] == [str(S), str(S)]]
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def _batch(flat, prefix):
+    return {k[len(prefix):]: jnp.asarray(v) for k, v in flat.items()
+            if k.startswith(prefix)}
+
+
+def _head_forward(cfg, mesh, flat, src, key, out, meta) -> None:
+    """The forward (jitted as in ``_logits_cases``, its compiled scores'
+    heads in ``meta``) and the decode steps of a head-group case."""
+    B, S = R.HEAD_SHAPE
+    api = build_model(cfg)
+    rules = make_rules(mesh, fsdp=False)
+    _, axes = api.abstract_init(jax.random.PRNGKey(0))
+    psh = params_shardings(rules, axes)
+    params = jax.device_put(_tree(flat, f"{src}/params/"), psh)
+    batch = _batch(flat, f"{src}/batch0/")
+    batch.pop("labels")
+    tokens = batch["tokens"]
+    fwd = jax.jit(lambda p, b: api.forward(p, b, mesh),
+                  in_shardings=(psh, batch_shardings(rules, batch)))
+    meta[f"{key}/heads"] = _scored_heads(fwd.lower(params, batch).compile(),
+                                         S)
+    shards, meta[f"{key}/forward"] = _shards(fwd(params, batch), mesh)
+    for i, x in enumerate(shards):
+        out[f"{key}/forward/{i}"] = x
+    step, sh = build_serve_step(api, rules, batch=B,
+                                max_len=R.DECODE_STEPS + 1, donate=False)
+    cache = jax.device_put(api.init_cache(B, R.DECODE_STEPS + 1)[0],
+                           sh["cache"])
+    steps = []
+    for t in range(R.DECODE_STEPS):
+        logits, cache = step(params, cache, tokens[:, t:t + 1], jnp.int32(t))
+        steps.append(_shards(logits, mesh)[0])
+    for i in range(len(steps[0])):
+        out[f"{key}/decode/{i}"] = np.stack([s[i] for s in steps])
+
+
+def _head_train(cfg, mesh, flat, src, key, out, meta) -> None:
+    """``jax.grad`` of ``loss_fn`` and TRAIN_STEPS AdamW steps of
+    ``build_train_step`` on ``make_rules(mesh)`` (its compiled scores'
+    heads in ``meta``) of a head-group case."""
+    api = build_model(cfg)
+    params = _tree(flat, f"{src}/params/")
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p, b: api.loss_fn(p, b, mesh)))(
+        params, _batch(flat, f"{src}/batch0/"))
+    out[f"{key}/grads/loss"] = loss
+    for p, g in _paths(grads):
+        out[f"{key}/grads/{p}"] = g
+    step, _, opt_init = build_train_step(
+        api, R.train_tcfg(TrainConfig, "adamw"), make_rules(mesh),
+        donate=False)
+    p, o, e = params, opt_init(params), init_error_state(params)
+    meta[f"{key}/train_heads"] = _scored_heads(step.lower(
+        p, o, e, _batch(flat, f"{src}/batch0/"),
+        jax.random.PRNGKey(0)).compile(), R.HEAD_SHAPE[1])
+    for t in range(R.TRAIN_STEPS):
+        p, o, e, m, c = step(p, o, e, _batch(flat, f"{src}/batch{t}/"),
+                             jax.random.PRNGKey(t))
+        out[f"{key}/steps/{t}/loss"] = m["loss"]
+        out[f"{key}/steps/{t}/grad_norm"] = m["grad_norm"]
+        for k in ("params", "opt", "updates"):
+            out[f"{key}/steps/{t}/{k}"] = np.asarray(flatten_checksums(c[k]))
+    for path, w in _paths(p):
+        out[f"{key}/steps/params/{path}"] = w
+
+
+def heads_main(out_dir: str, mode: str) -> None:
+    assert len(jax.devices()) == DEVICES, jax.devices()
+    out, meta = {}, {}
+    if mode == "pin16":
+        mesh = make_mesh((1, R.HEAD_WIDE_TP), ("data", "model"))
+        B, S = R.HEAD_SHAPE
+        for name, arch, H, KV in R.HEAD_WIDE:
+            api = build_model(R.wide_cfg(get_config, arch, H, KV))
+            params, axes = api.abstract_init(jax.random.PRNGKey(0))
+            rules = make_rules(mesh, fsdp=False)
+            batch = jax.eval_shape(lambda: make_batch(
+                api.cfg, B, S, jax.random.PRNGKey(0)))
+            batch.pop("labels")
+            fwd = jax.jit(lambda p, b: api.forward(p, b, mesh),
+                          in_shardings=(params_shardings(rules, axes),
+                                        batch_shardings(rules, batch)))
+            meta[f"{name}/heads"] = _scored_heads(
+                fwd.lower(params, batch).compile(), S)
+    else:
+        with np.load(os.path.join(out_dir, "inputs.npz")) as z:
+            flat = {k.replace("__", "/"): z[k] for k in z.files}
+        meshes = {name: make_mesh(shape, axes)
+                  for name, (shape, axes) in R.MESHES.items()}
+        for name, arch, H, KV in R.HEAD_CASES:
+            cfg = R.head_cfg(get_config, arch, H, KV)
+            for m, mesh in meshes.items():
+                _head_forward(cfg, mesh, flat, name, f"{name}/{m}", out, meta)
+                _head_train(cfg, mesh, flat, name, f"{name}/{m}", out, meta)
+        name, arch, H, KV = R.HEAD_KV3
+        _head_forward(R.head_cfg(get_config, arch, H, KV), meshes["1x4"],
+                      flat, name, f"{name}/1x4", out, meta)
+    np.savez(os.path.join(out_dir, f"{mode}.npz"),
+             **{k.replace("/", "__"): np.asarray(v, np.float32)
+                for k, v in out.items()})
+    with open(os.path.join(out_dir, f"{mode}.json"), "w") as fh:
+        json.dump(meta, fh)
+
+
 if __name__ == "__main__":
-    main(sys.argv[1])
+    if sys.argv[2:]:
+        heads_main(sys.argv[1], sys.argv[2])
+    else:
+        main(sys.argv[1])

@@ -16,6 +16,7 @@ The JAX package's side of the same cases is ``mesh_reference.py``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -585,19 +586,27 @@ def _steps(arch, mesh, optimizer, flat, compression="none") -> Dict:
     card) from the carried weights: per step the loss, grad_norm and
     flat checksums; the parameters after them, and the placements of the
     optimizer state beside ``build_opt_shardings``'."""
+    from repro_torch.models import get_config
+    return _steps_of(train_cfg(get_config, arch), mesh, optimizer, flat,
+                     arch, compression)
+
+
+def _steps_of(cfg, mesh, optimizer, flat, src,
+              compression="none") -> Dict:
+    """:func:`_steps` of ``cfg``, its weights and batches under ``src/``
+    in ``flat``."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch.steps import (build_opt_shardings,
                                           build_train_step, place_model)
-    from repro_torch.models import build_model, get_config
+    from repro_torch.models import build_model
     from repro_torch.models.carry import (opt_tree, param_axes,
                                           params_from_reference,
                                           params_to_reference, tree_items)
     from repro_torch.optim import init_error_state
     from repro_torch.sharding.partition import (make_rules,
                                                 params_shardings)
-    cfg = train_cfg(get_config, arch)
     tcfg = train_tcfg(TrainConfig, optimizer, grad_compression=compression)
-    lm = params_from_reference(cfg, _tree_from(flat, f"{arch}/params/"),
+    lm = params_from_reference(cfg, _tree_from(flat, f"{src}/params/"),
                                device="cpu")
     if mesh is not None:
         lm = place_model(lm, make_rules(mesh))
@@ -616,8 +625,7 @@ def _steps(arch, mesh, optimizer, flat, compression="none") -> Dict:
     err = (init_error_state(dict(lm.named_parameters()))
            if compression != "none" else {})
     for t in range(TRAIN_STEPS):
-        batch = {k: torch.from_numpy(flat[f"{arch}/batch{t}/{k}"])
-                 for k in ("tokens", "labels")}
+        batch = _batch(flat, f"{src}/batch{t}/")
         lm, opt, err, m, c = step(lm, opt, err, batch,
                                   torch.Generator().manual_seed(t))
         out[f"{t}/loss"] = float(m["loss"])
@@ -651,32 +659,44 @@ def _wide(fn, width: int):
     return out, shapes
 
 
+def _batch(flat, prefix: str) -> Dict:
+    """The batch whose leaves ``flat`` holds under ``prefix``."""
+    return {k[len(prefix):]: torch.from_numpy(v) for k, v in flat.items()
+            if k.startswith(prefix)}
+
+
 def _grads(arch, mesh, flat, vocab=None) -> Dict:
     """The step's ``value_and_grad`` across the ranks: the loss and every
     leaf's global gradient in the reference's layout, and the shapes of
     the tensors of the padded vocabulary's width that the loss and its
     backward made on the rank. ``vocab``: the configuration's vocabulary
     and batch of ``VOCAB_CASES``."""
+    from repro_torch.models import get_config
+    cfg = train_cfg(get_config, arch)
+    if vocab is not None:
+        cfg = dataclasses.replace(cfg, vocab_size=vocab)
+    return _grads_of(cfg, mesh, flat, arch,
+                     f"{arch if vocab is None else f'v{vocab}'}/batch0/")
+
+
+def _grads_of(cfg, mesh, flat, src: str, batch: str) -> Dict:
+    """:func:`_grads` of ``cfg``, its weights under ``src/params/`` in
+    ``flat`` and its batch under ``batch``."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch.steps import build_train_step, place_model
-    from repro_torch.models import build_model, get_config
+    from repro_torch.models import build_model
     from repro_torch.models.carry import (params_from_reference,
                                           reference_tree, to_host,
                                           tree_items)
     from repro_torch.sharding.partition import make_rules
-    cfg = train_cfg(get_config, arch)
-    if vocab is not None:
-        cfg = dataclasses.replace(cfg, vocab_size=vocab)
     lm = place_model(params_from_reference(
-        cfg, _tree_from(flat, f"{arch}/params/"), device="cpu"),
+        cfg, _tree_from(flat, f"{src}/params/"), device="cpu"),
         make_rules(mesh))
     _, info, _ = build_train_step(build_model(cfg),
                                   TrainConfig(remat="none"), mesh)
-    src = arch if vocab is None else f"v{vocab}"
-    batch = {k: torch.from_numpy(flat[f"{src}/batch0/{k}"])
-             for k in ("tokens", "labels")}
-    (loss, grads), wide = _wide(lambda: info["value_and_grad"](lm, batch),
-                                cfg.padded_vocab)
+    (loss, grads), wide = _wide(
+        lambda: info["value_and_grad"](lm, _batch(flat, batch)),
+        cfg.padded_vocab)
     return {"loss": float(loss), "wide": wide,
             "grads": {p: to_host(x) for p, x in
                       tree_items(reference_tree(cfg, grads))}}
@@ -804,4 +824,135 @@ def train_body(rank: int, out_dir: str) -> Dict:
         out["int8"] = _steps("llama3-8b", meshes["2x2"], "adamw", flat,
                              compression="int8")
         out.update(_trainer_cases(rank, meshes["2x2"], out_dir))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_head_groups.py's ranks
+# ---------------------------------------------------------------------------
+
+# reduced configs whose query heads a TP degree of 4 does not tile, as
+# phi4-mini-3.8b's 24 (KV 8) and qwen2-vl-2b's 12 (KV 2) at 16: (name,
+# arch, H, KV). At 1 x 4 each is 2 blocks of 3 heads, 2 ranks a block
+# (dense: one KV group a block; vlm: half of the one group); at 2 x 2
+# the heads tile, and each rank is a block of its own
+HEAD_CASES = (("dense", "phi4-mini-3.8b", 6, 2), ("vlm", "qwen2-vl-2b", 6, 1))
+# a block of 3 heads over 1.5 KV groups (no arch): the forward at 1 x 4
+HEAD_KV3 = ("kv3", "phi4-mini-3.8b", 6, 3)
+HEAD_SHAPE = (4, 24)           # (B, S); the vlm's S: 16 patches, 8 tokens
+# the pin at 1 x 16, phi4-mini-3.8b's and qwen2-vl-2b's heads: (name,
+# arch, H, KV), one narrow layer each
+HEAD_WIDE = (("phi4", "phi4-mini-3.8b", 24, 8),
+             ("qwen2vl", "qwen2-vl-2b", 12, 2))
+HEAD_WIDE_TP = 16
+
+
+def head_cfg(get_config, arch: str, H: int, KV: int):
+    """A head-group case's configuration in either package: ``arch``
+    reduced, with ``H`` / ``KV`` heads, float32 compute."""
+    return dataclasses.replace(get_config(arch).reduced(), n_heads=H,
+                               n_kv_heads=KV, compute_dtype="float32")
+
+
+def wide_cfg(get_config, arch: str, H: int, KV: int):
+    """A 1 x 16 pin's configuration: one layer of width 64, head dim 32."""
+    return dataclasses.replace(head_cfg(get_config, arch, H, KV),
+                               n_layers=1, d_model=64)
+
+
+@contextlib.contextmanager
+def scored_heads():
+    """The query heads of each attention score that ``layers._sdpa``
+    computes while the enclosed code runs, but a decode step's (a list
+    that fills)."""
+    from repro_torch.models import layers
+    seen = []
+    sdpa = layers._sdpa
+
+    def spy(q, k, v, **kw):
+        if kw.get("kv_len") is None:
+            seen.append(int(q.shape[2]))
+        return sdpa(q, k, v, **kw)
+
+    layers._sdpa = spy
+    try:
+        yield seen
+    finally:
+        layers._sdpa = sdpa
+
+
+@contextlib.contextmanager
+def whole_reads():
+    """The shapes of the parameters read through ``DTensor.full_tensor``
+    while the enclosed code runs (a list that fills)."""
+    from torch.distributed.tensor import DTensor
+    seen = []
+    full = DTensor.full_tensor
+
+    def spy(self, *a, **k):
+        if isinstance(self, torch.nn.Parameter):
+            seen.append(tuple(self.shape))
+        return full(self, *a, **k)
+
+    DTensor.full_tensor = spy
+    try:
+        yield seen
+    finally:
+        DTensor.full_tensor = full
+
+
+def _head_forward(cfg, mesh, flat, src: str) -> Dict:
+    """The forward and DECODE_STEPS decode steps of ``cfg`` on ``mesh``
+    (weights and batch under ``src/`` in ``flat``) as this rank holds
+    their logits, with the heads each of its scores held."""
+    from repro_torch.models import build_model
+    from repro_torch.models.carry import params_from_reference
+    api = build_model(cfg)
+    lm = params_from_reference(cfg, _tree_from(flat, f"{src}/params/"),
+                               device="cpu")
+    batch = _batch(flat, f"{src}/batch0/")
+    batch.pop("labels")
+    with scored_heads() as heads:
+        logits = api.forward(lm, batch, mesh)
+    out = {"forward": _np(logits), "heads": heads,
+           "placements": tuple(map(repr, logits.placements))}
+    B = HEAD_SHAPE[0]
+    cache, _ = api.init_cache(B, DECODE_STEPS + 1)
+    steps = []
+    for t in range(DECODE_STEPS):
+        logits, cache = api.decode_step(
+            lm, cache, batch["tokens"][:, t:t + 1], t, mesh)
+        steps.append(_np(logits))
+    out["decode"] = np.stack(steps)
+    return out
+
+
+def head_groups_body(rank: int, out_dir: str) -> Dict:
+    """Every case of ``test_torch_head_groups.py`` that needs ranks: for
+    each of ``HEAD_CASES`` on each mesh the forward, the decode steps,
+    the gradients (with the heads each score held) and TRAIN_STEPS
+    AdamW steps; ``HEAD_KV3``'s forward on 1 x 4."""
+    import repro_torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_config
+    with np.load(os.path.join(out_dir, "inputs.npz")) as z:
+        flat = {k.replace("__", "/"): z[k] for k in z.files}
+    out = {}
+    with repro_torch.use_device("cpu"):
+        meshes = {name: make_mesh(shape, axes)
+                  for name, (shape, axes) in MESHES.items()}
+        for name, arch, H, KV in HEAD_CASES:
+            cfg = head_cfg(get_config, arch, H, KV)
+            for m, mesh in meshes.items():
+                key = f"{name}/{m}"
+                out[key] = _head_forward(cfg, mesh, flat, name)
+                with scored_heads() as heads, whole_reads() as whole:
+                    out[f"{key}/grads"] = _grads_of(cfg, mesh, flat, name,
+                                                    f"{name}/batch0/")
+                out[f"{key}/grads"].update(heads=heads, whole_reads=whole)
+                out[f"{key}/steps"] = _steps_of(cfg, mesh, "adamw", flat,
+                                                name)
+        name, arch, H, KV = HEAD_KV3
+        out[f"{name}/1x4"] = _head_forward(head_cfg(get_config, arch, H, KV),
+                                           meshes["1x4"], flat, name)
     return out
