@@ -150,7 +150,13 @@ Phases, each printing one JSON line:
            by its own rows of wo, the 16 outputs summed against one card's
            plain layer within the same 2 bf16 ulps, each rank's scored
            heads, score bytes, peak memory and ms beside the whole
-           layer's; one deepseek-v2-lite-16b MoE layer (64
+           layer's; zamba2-1.2b's Mamba2 layer at full width (bf16, 2 x
+           4096) through ``mamba2_body`` for the 16 ranks of tp = 16, each
+           running the SSD for the 4 of 64 heads its rows of out_proj read
+           (``mamba2.ssd_heads``), the 16 outputs summed against one
+           card's layer within the same 2 bf16 ulps, each rank's SSD
+           heads, peak memory and ms beside the whole layer's; one
+           deepseek-v2-lite-16b MoE layer (64
            experts, 16 per rank, K = 6; 2 x 1024 tokens, float32) through
            the EP body of 4 ranks, each handed its own 16 experts' stacks,
            with an all-to-all between threads of this script, equal to
@@ -466,6 +472,10 @@ MESH_LAYER_RTOL = 2 * 2.0 ** -7
 # gcd(24, 16) = 8 blocks of 3, 2 ranks a block), held by the same rule
 MESH_BLOCK_ARCH = "phi4-mini-3.8b"
 MESH_BLOCK_TP = 16
+# the SSD heads of a Mamba2 layer split over "model": zamba2-1.2b's layer
+# at the production TP of 16 (64 heads, 4 a rank), held by the same rule
+MESH_SSD_ARCH = "zamba2-1.2b"
+MESH_SSD_TP = 16
 
 # the mesh_train phase: (arch, depth cuts, sequence, crash and restart) of
 # the trainers held to the one-card trainer through a mesh of one rank
@@ -3466,6 +3476,16 @@ def _mesh_tp_layer(cfg, B: int, S: int) -> dict:
             "rank_body_ms": rank_ms, "whole_layer_ms": whole_ms}
 
 
+def _peak_gb(fn) -> tuple:
+    """(``fn()``, the GB it allocated at its peak beyond what was live)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
 def _mesh_head_blocks_layer() -> dict:
     """phi4-mini-3.8b's attention layer (seeded float32 weights, bf16
     input of SERVE_BATCH x SERVE_PROMPT) through ``attention_body`` for
@@ -3503,24 +3523,16 @@ def _mesh_head_blocks_layer() -> dict:
         return layers_mod.attention_body(cfg, ranks[r], x, positions,
                                          rank=r, tp=tp)[0]
 
-    def peak_gb(fn):
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (torch.cuda.max_memory_allocated() - base) / 1e9
-
     layers_mod._sdpa = spy
     try:
         with torch.no_grad():
-            whole, whole_gb = peak_gb(lambda: layers_mod.attention_apply(
+            whole, whole_gb = _peak_gb(lambda: layers_mod.attention_apply(
                 cfg, p, x, positions)[0])
             whole_heads = seen.pop()
             summed = torch.zeros(whole.shape, device=dev)
             rank_gb = []
             for r in range(tp):
-                out, gb = peak_gb(lambda: body(r))
+                out, gb = _peak_gb(lambda: body(r))
                 summed += out.float()
                 rank_gb.append(gb)
                 del out
@@ -3550,6 +3562,74 @@ def _mesh_head_blocks_layer() -> dict:
             "rank_peak_gb": rank_gb, "whole_peak_gb": whole_gb,
             "rank_weight_bytes": nbytes(vars(ranks[0]).values()),
             "whole_weight_bytes": nbytes(p.parameters()),
+            "rank_body_ms": rank_ms, "whole_layer_ms": whole_ms}
+
+
+def _mesh_ssd_heads_layer() -> dict:
+    """zamba2-1.2b's Mamba2 layer (seeded float32 weights, bf16 input of
+    SERVE_BATCH x SERVE_PROMPT) through ``mamba2_body`` for each of the
+    MESH_SSD_TP ranks, one after another: each rank its own rows of
+    out_proj, every other weight whole, the SSD run for the heads those
+    rows read (``mamba2.ssd_heads``). Their outputs summed in float32
+    stand for the mesh's sum over "model"; held to one card's layer
+    within MESH_LAYER_RTOL of its largest value. Each rank's SSD heads
+    (``_ssd_intra``'s), body ms and peak memory beside the whole
+    layer's."""
+    from types import SimpleNamespace
+    dev = torch.device("cuda")
+    cfg = get_config(MESH_SSD_ARCH)
+    B, S, tp = SERVE_BATCH, SERVE_PROMPT, MESH_SSD_TP
+    p = mamba2_mod.Mamba2(cfg, device=dev)
+    p.init_(torch.Generator(device=dev).manual_seed(MESH_SEED + 6))
+    x = torch.randn((B, S, cfg.d_model), device=dev, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=dev)
+                    .manual_seed(MESH_SEED + 7))
+    whole_w = {k: getattr(p, k) for k in mamba2_mod.Mamba2.AXES}
+    ranks = [SimpleNamespace(**{**whole_w, "out_proj": rows})
+             for rows in p.out_proj.chunk(tp, 0)]
+    seen = []
+    intra = mamba2_mod._ssd_intra
+
+    def spy(la, *a):
+        seen.append(int(la.shape[-1]))
+        return intra(la, *a)
+
+    def body(r):
+        return mamba2_mod.mamba2_body(cfg, ranks[r], x, rank=r, tp=tp)
+
+    mamba2_mod._ssd_intra = spy
+    try:
+        with torch.no_grad():
+            whole, whole_gb = _peak_gb(lambda: mamba2_mod.mamba2_apply(
+                cfg, p, x))
+            whole_heads = seen.pop()
+            summed = torch.zeros(whole.shape, device=dev)
+            rank_gb = []
+            for r in range(tp):
+                out, gb = _peak_gb(lambda: body(r))
+                summed += out.float()
+                rank_gb.append(gb)
+                del out
+            rank_heads = seen[:]
+            scale = float(whole.float().abs().max())
+            err = check_close("SSD-head Mamba2 layer vs one card's",
+                              summed.to(whole.dtype), whole, 0.0,
+                              MESH_LAYER_RTOL * scale)
+            rank_ms = time_ms(lambda: body(0), 10)
+            whole_ms = time_ms(lambda: mamba2_mod.mamba2_apply(cfg, p, x), 10)
+    finally:
+        mamba2_mod._ssd_intra = intra
+    d_inner, H, _ = mamba2_mod.mamba2_dims(cfg)
+    want = [mamba2_mod.ssd_heads(d_inner, cfg.ssm_head_dim, tp, r)[1]
+            for r in range(tp)]
+    if rank_heads != want or set(want) != {-(-H // tp)}:
+        raise AssertionError(f"the ranks ran {rank_heads} SSD heads, not "
+                             f"{-(-H // tp)} each")
+    return {"shape": f"x ({B},{S},{cfg.d_model}) bf16, weights f32, "
+                     f"{H} SSM heads of {cfg.ssm_head_dim}, tp {tp}",
+            "max_abs_err_vs_one_card": err, "atol": MESH_LAYER_RTOL * scale,
+            "rank_ssd_heads": rank_heads, "whole_ssd_heads": whole_heads,
+            "rank_peak_gb": rank_gb, "whole_peak_gb": whole_gb,
             "rank_body_ms": rank_ms, "whole_layer_ms": whole_ms}
 
 
@@ -3669,6 +3749,9 @@ def phase_mesh(records: list) -> None:
     blocks = _mesh_head_blocks_layer()
     gc.collect()
     torch.cuda.empty_cache()
+    ssd = _mesh_ssd_heads_layer()
+    gc.collect()
+    torch.cuda.empty_cache()
     ep = _mesh_ep_layer()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3694,7 +3777,7 @@ def phase_mesh(records: list) -> None:
                 "mesh llama3-8b prefill": dense_run["launches"][
                     "flash_attention"]})
     emit({"phase": "mesh", "tp_attention": tp, "head_blocks": blocks,
-          "ep_layer": ep,
+          "ssd_heads": ssd, "ep_layer": ep,
           "world_1": [moe_run, dense_run]})
 
 

@@ -15,8 +15,15 @@ float32 parameters (the train step's compute copy holds them in the
 compute type, as the reference's does, and float32 math promotes them).
 
 Under tensor parallelism (``layers.tp_weights`` on a DeviceMesh whose
-"model" axis divides ``d_inner``) ``out_proj`` is split by its rows: each
-rank runs the whole SSM (its weights stay whole) and projects its slice
+"model" axis divides ``d_inner``) ``out_proj`` is split by its rows, as
+the reference places it. Each rank runs the SSD for the heads whose
+columns its rows read (:func:`ssd_heads`), from its own columns of
+``in_proj`` (its rows' z, its heads' x and dt, B and C whole) and its
+heads' conv channels, decays and skips; the weights stay whole on every
+rank. That is ``ceil(H / tp)`` heads, as XLA splits the reference's,
+at the production meshes' TP of 16 for both Mamba2 archs; a rank whose
+columns start inside a head may span one head more than that (7 heads
+over 4 ranks: 3 on the middle two). It projects its slice
 of the gated inner activations, and the ranks' outputs are summed.
 """
 
@@ -30,8 +37,8 @@ from torch import nn
 from ..configs.base import ModelConfig
 from . import layers as L
 
-__all__ = ["Mamba2", "mamba2_apply", "mamba2_decode_step",
-           "mamba2_cache_init", "mamba2_dims"]
+__all__ = ["Mamba2", "mamba2_apply", "mamba2_body", "mamba2_decode_step",
+           "mamba2_cache_init", "mamba2_dims", "ssd_heads"]
 
 F32 = torch.float32
 silu = nn.functional.silu
@@ -54,7 +61,7 @@ class Mamba2(nn.Module):
             "conv_w": ("conv_width", "ssm_conv"), "conv_b": ("ssm_conv",),
             "A_log": ("ssm_heads",), "dt_bias": ("ssm_heads",),
             "D_skip": ("ssm_heads",), "out_proj": ("ssm_inner", "embed")}
-    # whole on every rank, each of which projects its own slice
+    # whole on every rank, each of which reads its own heads' part
     TP_PARTIAL = ("in_proj", "conv_w", "conv_b", "A_log", "dt_bias",
                   "D_skip")
 
@@ -176,12 +183,42 @@ def _enter(cfg: ModelConfig, p: Mamba2, x: torch.Tensor, mesh):
             else L.tp_enter(x, mesh))
 
 
+def ssd_heads(d_inner: int, hd: int, tp: int, rank: int) -> Tuple[int, int]:
+    """(first, count) of the SSM heads of head dim ``hd`` whose columns of
+    the inner activations rank ``rank``'s ``d_inner / tp`` rows of
+    ``out_proj`` read: heads ``floor(c0 / hd)`` to ``ceil((c0 + d_loc) /
+    hd) - 1``, ``c0 = rank * d_loc``. A head whose columns two ranks share
+    is run by both, each projecting its own columns."""
+    d_loc = d_inner // tp
+    c0 = rank * d_loc
+    h0 = c0 // hd
+    return h0, -(-(c0 + d_loc) // hd) - h0
+
+
 def mamba2_apply(cfg: ModelConfig, p: Mamba2, x_in: torch.Tensor,
                  mesh=None) -> torch.Tensor:
     """Full-sequence SSD. x_in: (B, S, D) -> (B, S, D) in x_in's type.
     ``S`` must be a multiple of the chunk ``min(cfg.ssm_chunk, S)``
     (decode goes through :func:`mamba2_decode_step`). ``p`` split over
-    "model" (see the module's note) needs its DeviceMesh."""
+    "model" (see the module's note) needs its DeviceMesh: the rank runs
+    :func:`mamba2_body` between ``tp_enter`` and ``tp_reduce``, which
+    sums the ranks' outputs."""
+    if p.out_proj.shape[0] == mamba2_dims(cfg)[0]:
+        return mamba2_body(cfg, p, x_in)
+    tp, idx = L._tp(mesh)
+    out = mamba2_body(cfg, p, L.tp_enter(x_in, mesh), rank=idx, tp=tp)
+    return L.tp_reduce(out, mesh)
+
+
+def mamba2_body(cfg: ModelConfig, p: Mamba2, x_in: torch.Tensor, *,
+                rank: int = 0, tp: int = 1) -> torch.Tensor:
+    """One rank's Mamba2 under tensor parallelism over ``tp`` ranks (the
+    whole layer at ``tp`` 1): ``p.out_proj`` holds the rank's ``d_inner /
+    tp`` rows, every other weight is whole. The SSD runs for the heads
+    those rows read (:func:`ssd_heads`), on the columns of ``in_proj``
+    and the conv channels they need, taken by index (the weights are not
+    copied whole). Returns the rank's share of the output, which the
+    ranks sum."""
     Bb, S, D = x_in.shape
     N = cfg.ssm_state
     Q = min(cfg.ssm_chunk, S)
@@ -191,34 +228,51 @@ def mamba2_apply(cfg: ModelConfig, p: Mamba2, x_in: torch.Tensor,
     d_inner, nheads, _ = mamba2_dims(cfg)
     hd = cfg.ssm_head_dim
     dt_ = x_in.dtype
-    x_in = _enter(cfg, p, x_in, mesh)
+    d_loc = d_inner // tp
+    if tp == 1:
+        h0, nh = 0, nheads
+        w_in, conv_w, conv_b = p.in_proj, p.conv_w, p.conv_b
+    else:
+        h0, nh = ssd_heads(d_inner, hd, tp, rank)
+        dev = p.in_proj.device
+        ar = lambda a, n: torch.arange(a, a + n, device=dev)  # noqa: E731
+        # conv channels [x | B | C]; in_proj columns [z | x | B | C | dt]
+        ch = torch.cat([ar(h0 * hd, nh * hd), ar(d_inner, 2 * N)])
+        cols = torch.cat([ar(rank * d_loc, d_loc), d_inner + ch,
+                          ar(2 * d_inner + 2 * N + h0, nh)])
+        w_in = p.in_proj.index_select(1, cols)
+        conv_w = p.conv_w.index_select(1, ch)
+        conv_b = p.conv_b.index_select(0, ch)
+    heads = slice(h0, h0 + nh)
 
-    proj = x_in @ p.in_proj.to(dt_)
-    z, xs, Bm, Cm, dt = _split_proj(cfg, proj)
+    proj = x_in @ w_in.to(dt_)
+    z, xs, Bm, Cm, dt = torch.split(proj, [d_loc, nh * hd, N, N, nh],
+                                    dim=-1)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
-    conv_out = _causal_conv(conv_in, p.conv_w.to(dt_), p.conv_b.to(dt_))
-    xs, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
+    conv_out = _causal_conv(conv_in, conv_w.to(dt_), conv_b.to(dt_))
+    xs, Bm, Cm = torch.split(conv_out, [nh * hd, N, N], dim=-1)
 
-    dt = nn.functional.softplus(dt.to(F32) + p.dt_bias)         # (B,S,H)
-    A = -torch.exp(p.A_log)                                       # (H,)
+    dt = nn.functional.softplus(dt.to(F32) + p.dt_bias[heads])  # (B,S,H)
+    A = -torch.exp(p.A_log[heads])                                # (H,)
     log_a = dt * A[None, None, :]                                 # (B,S,H)
 
     nc = S // Q
-    xh = xs.reshape(Bb, nc, Q, nheads, hd).to(F32)
+    xh = xs.reshape(Bb, nc, Q, nh, hd).to(F32)
     Bc = Bm.reshape(Bb, nc, Q, N).to(F32)
     Cc = Cm.reshape(Bb, nc, Q, N).to(F32)
-    la = log_a.reshape(Bb, nc, Q, nheads)
-    dtc = dt.reshape(Bb, nc, Q, nheads)
+    la = log_a.reshape(Bb, nc, Q, nh)
+    dtc = dt.reshape(Bb, nc, Q, nh)
     xdt = xh * dtc[..., None]                                     # fold dt in
 
     y_intra = _ssd_intra(la, Cc, Bc, xdt)
     y_inter = _ssd_chunk_scan(la, Cc, Bc, xdt)
 
-    y = (y_intra + y_inter).reshape(Bb, S, nheads, hd)
-    y = y + xh.reshape(Bb, S, nheads, hd) * p.D_skip[None, None, :, None]
-    y = y.reshape(Bb, S, d_inner).to(dt_)
-    y = y * silu(z)
-    return _out_proj(p, y, mesh)
+    y = (y_intra + y_inter).reshape(Bb, S, nh, hd)
+    y = y + xh.reshape(Bb, S, nh, hd) * p.D_skip[heads][None, None, :, None]
+    y = y.reshape(Bb, S, nh * hd).to(dt_)
+    y0 = rank * d_loc - h0 * hd                # the rank's rows' columns
+    y = y[..., y0:y0 + d_loc] * silu(z)
+    return y @ p.out_proj.to(dt_)
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,17 @@ decode steps as above, ``jax.grad`` of ``loss_fn`` and three steps of
 ``HEAD_WIDE``'s forwards on 16 devices at 1 x 16. Both write the heads
 of each compiled score ``dot`` per device (``compiled.as_text()``) to
 ``DIR/<mode>.json`` beside ``DIR/<mode>.npz``.
+
+    python tests/mesh_reference.py DIR ssd
+    python tests/mesh_reference.py DIR ssd16
+
+are ``test_torch_ssd_heads.py``'s sides: ``ssd`` runs, on the four
+devices, each of ``torch_ranks.SSD_CASES`` on 1 x 4 (the forward as
+above and ``jax.grad`` of ``loss_fn``) and compiles one step of
+``build_train_step``; ``ssd16`` only compiles ``SSD_WIDE``'s forward and
+train step on 16 devices at 1 x 16. Both write the SSM heads of the
+SSD's float32 (B, nc, heads, Q, Q) tensors per device to
+``DIR/<mode>.json``.
 """
 
 import dataclasses
@@ -36,7 +47,7 @@ import os
 import re
 import sys
 
-DEVICES = 16 if sys.argv[2:] == ["pin16"] else 4
+DEVICES = 16 if sys.argv[2:] in (["pin16"], ["ssd16"]) else 4
 os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={DEVICES}"
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [os.path.join(HERE, os.pardir, "src"), HERE]
@@ -186,6 +197,17 @@ def _scored_heads(compiled, S: int) -> list:
             if d.split(",")[-2:] == [str(S), str(S)]]
 
 
+def _ssd_heads(compiled, Q: int) -> list:
+    """The heads of each float32 rank-5 tensor with a trailing (Q, Q) in a
+    compiled program's text: per device (B_loc, nc, heads, Q, Q), the SSD's
+    decays within chunks and what is made of them (and, where the head
+    dim and the state are Q as well, its chunk states (B_loc, nc, heads,
+    hd, N))."""
+    return [int(d.split(",")[2]) for d in
+            re.findall(r"f32\[([0-9,]+)\]", compiled.as_text())
+            if d.count(",") == 4 and d.split(",")[-2:] == [str(Q)] * 2]
+
+
 def _paths(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -260,6 +282,71 @@ def _head_train(cfg, mesh, flat, src, key, out, meta) -> None:
         out[f"{key}/steps/params/{path}"] = w
 
 
+def _ssd_case(cfg, mesh, params, batch, key, out, meta,
+              run: bool = True) -> None:
+    """An SSD-heads case on ``mesh``: the forward jitted as in
+    ``_logits_cases`` and one step of ``build_train_step`` on
+    ``make_rules(mesh)`` compiled, the heads of each one's SSD
+    (:func:`_ssd_heads`) in ``meta``; where ``run``, each device's shard of
+    the forward's logits and ``jax.grad`` of ``loss_fn`` on the mesh."""
+    api = build_model(cfg)
+    Q = min(cfg.ssm_chunk, R.SSD_SHAPE[1])
+    rules = make_rules(mesh, fsdp=False)
+    _, axes = api.abstract_init(jax.random.PRNGKey(0))
+    psh = params_shardings(rules, axes)
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    fwd = jax.jit(lambda p, b: api.forward(p, b, mesh),
+                  in_shardings=(psh, batch_shardings(rules, inputs)))
+    placed = jax.device_put(params, psh)
+    meta[f"{key}/heads"] = _ssd_heads(fwd.lower(placed, inputs).compile(), Q)
+    step, _, opt_init = build_train_step(
+        api, R.train_tcfg(TrainConfig, "adamw"), make_rules(mesh),
+        donate=False)
+    meta[f"{key}/train_heads"] = _ssd_heads(step.lower(
+        params, opt_init(params), init_error_state(params), batch,
+        jax.random.PRNGKey(0)).compile(), Q)
+    if not run:
+        return
+    shards, meta[f"{key}/forward"] = _shards(fwd(placed, inputs), mesh)
+    for i, x in enumerate(shards):
+        out[f"{key}/forward/{i}"] = x
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p, b: api.loss_fn(p, b, mesh)))(params, batch)
+    out[f"{key}/grads/loss"] = loss
+    for p, g in _paths(grads):
+        out[f"{key}/grads/{p}"] = g
+
+
+def ssd_main(out_dir: str, mode: str) -> None:
+    """``ssd``: each of ``R.SSD_CASES`` on ``R.SSD_MESH`` from the test's
+    inputs; ``ssd16``: ``R.SSD_WIDE`` at 1 x 16, compiled only."""
+    assert len(jax.devices()) == DEVICES, jax.devices()
+    out, meta = {}, {}
+    B, S = R.SSD_SHAPE
+    if mode == "ssd16":
+        mesh = make_mesh((1, R.SSD_WIDE_TP), ("data", "model"))
+        for name, arch, d in R.SSD_WIDE:
+            cfg = R.ssd_cfg(get_config, arch, d, n_layers=1)
+            params, _ = build_model(cfg).init(jax.random.PRNGKey(0))
+            _ssd_case(cfg, mesh, params,
+                      make_batch(cfg, B, S, jax.random.PRNGKey(1)), name,
+                      out, meta, run=False)
+    else:
+        with np.load(os.path.join(out_dir, "inputs.npz")) as z:
+            flat = {k.replace("__", "/"): z[k] for k in z.files}
+        shape, axes = R.MESHES[R.SSD_MESH]
+        mesh = make_mesh(shape, axes)
+        for name, arch, d in R.SSD_CASES:
+            _ssd_case(R.ssd_cfg(get_config, arch, d), mesh,
+                      _tree(flat, f"{name}/params/"),
+                      _batch(flat, f"{name}/batch0/"), name, out, meta)
+    np.savez(os.path.join(out_dir, f"{mode}.npz"),
+             **{k.replace("/", "__"): np.asarray(v, np.float32)
+                for k, v in out.items()})
+    with open(os.path.join(out_dir, f"{mode}.json"), "w") as fh:
+        json.dump(meta, fh)
+
+
 def heads_main(out_dir: str, mode: str) -> None:
     assert len(jax.devices()) == DEVICES, jax.devices()
     out, meta = {}, {}
@@ -299,7 +386,9 @@ def heads_main(out_dir: str, mode: str) -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[2:]:
+    if sys.argv[2:] in (["ssd"], ["ssd16"]):
+        ssd_main(sys.argv[1], sys.argv[2])
+    elif sys.argv[2:]:
         heads_main(sys.argv[1], sys.argv[2])
     else:
         main(sys.argv[1])

@@ -25,8 +25,9 @@
   ``P(dp)`` where 16 does not divide the vocabulary: granite-3-8b,
   mamba2-130m, hubert-xlarge; pinned on four devices by
   ``test_torch_sharding.py``).
-* FLOPs: reduced llama3-8b's prefill on a (2, 2) fake group counts, on
-  rank 0, exactly the hand formula of its tensor-parallel layers.
+* FLOPs: reduced llama3-8b's and mamba2-130m's prefills on a (2, 2)
+  fake group count, on rank 0, exactly the hand formula of their
+  tensor-parallel layers (the Mamba2 rank's SSD for its own heads).
 * One full-width cell end to end (llama3-8b ``decode_32k``, single pod)
   and the command line on one arch, whose records go under ``tmp_path``.
 * The fake group is torn down after a cell that passes and one that
@@ -299,6 +300,35 @@ def test_flops_equal_hand_formula():
              + 4 * (B // dp) * S * S * H_loc * hd   # q.k and p.v
              + 2 * T * H_loc * hd * D          # o
              + 3 * 2 * T * D * F // tp)        # gate, up, down
+    head = 2 * T * D * cfg.padded_vocab // tp
+    assert rec["cost_analysis"]["flops"] == cfg.n_layers * layer + head
+
+
+def test_ssm_flops_equal_hand_formula():
+    """Rank 0 of reduced mamba2-130m's plain prefill on (2, 2): the rank's
+    ``in_proj`` columns (its rows' z, its heads' x and dt, B and C
+    whole), the SSD of its ``ceil(H / tp)`` heads within chunks (the
+    scores ``C.B`` whole, the masked product per head) and across them
+    (each chunk's state and each position's output from it), ``out_proj``'s
+    ``d_inner / tp`` rows and the head split by the tensor-parallel
+    degree. A rank that ran all H heads counts more."""
+    cfg = get_config("mamba2-130m").reduced()
+    B, S, dp, tp = 4, 16, 2, 2
+    with dryrun.fake_group(dp * tp):
+        mesh = make_mesh((dp, tp), ("data", "model"))
+        cell = dryrun.build_cell(cfg, ShapeConfig("t", S, B, "prefill"),
+                                 mesh)
+        rec = dryrun.measure(cell)
+    D, N, hd = cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim
+    d_loc = cfg.ssm_expand * D // tp
+    H_loc = d_loc // hd                  # the heads tile the rows here
+    B_loc, Q = B // dp, min(cfg.ssm_chunk, S)
+    T, nc = B_loc * S, S // Q
+    layer = (2 * T * D * (d_loc + H_loc * hd + 2 * N + H_loc)   # in_proj
+             + 2 * B_loc * nc * Q * Q * N                # C.B scores
+             + 2 * B_loc * nc * H_loc * Q * Q * hd       # within chunks
+             + 2 * 2 * B_loc * nc * Q * N * H_loc * hd   # across chunks
+             + 2 * T * d_loc * D)                        # out_proj
     head = 2 * T * D * cfg.padded_vocab // tp
     assert rec["cost_analysis"]["flops"] == cfg.n_layers * layer + head
 

@@ -31,10 +31,6 @@ its own, its collectives moving nothing, as in the dry run).
 """
 
 import dataclasses
-import json
-import os
-import subprocess
-import sys
 
 import jax
 import numpy as np
@@ -55,7 +51,6 @@ from repro_torch.models import build_model, get_config, layers
 from repro_torch.models.carry import tree_items
 from torch_parity import assert_flat_checksums
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 FWD_TOL = 1e-4
 CASES = [(name, m) for name, _, _, _ in R.HEAD_CASES for m in R.MESHES]
 IDS = [f"{name}-{m}" for name, m in CASES]
@@ -74,33 +69,6 @@ def _inputs():
             for k, v in batch.items():
                 flat[f"{name}/batch{t}/{k}"] = np.asarray(v)
     return flat
-
-
-def _reference(d, mode):
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    env.pop("XLA_FLAGS", None)
-    return subprocess.Popen([sys.executable,
-                             os.path.join(HERE, "mesh_reference.py"), str(d),
-                             mode], env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-
-
-def _wait(ref):
-    try:
-        _, err = ref.communicate(timeout=R.REF_TIMEOUT)
-    except subprocess.TimeoutExpired:
-        ref.kill()
-        ref.communicate()
-        raise
-    assert ref.returncode == 0, err[-3000:]
-
-
-def _load(d, mode):
-    with np.load(d / f"{mode}.npz") as z:
-        want = {k.replace("__", "/"): z[k] for k in z.files}
-    with open(d / f"{mode}.json") as fh:
-        want["meta"] = json.load(fh)
-    return want
 
 
 def _wide_heads():
@@ -137,14 +105,15 @@ def runs(tmp_path_factory):
     flat = _inputs()
     np.savez(d / "inputs.npz", **{k.replace("/", "__"): v
                                   for k, v in flat.items()})
-    refs = {mode: _reference(d, mode) for mode in ("heads", "pin16")}
+    refs = {mode: R.start_reference(d, mode) for mode in ("heads", "pin16")}
     try:
         ranks = R.run_world(R.head_groups_body, str(d))
         wide = _wide_heads()
     finally:
         for ref in refs.values():
-            _wait(ref)
-    return ranks, _load(d, "heads"), _load(d, "pin16"), wide
+            R.wait_reference(ref)
+    return (ranks, R.load_reference(d, "heads"), R.load_reference(d, "pin16"),
+            wide)
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
+import subprocess
+import sys
 import time
 from typing import Callable, Dict, List
 
@@ -107,6 +110,40 @@ def run_world(body: Callable, out_dir: str, world: int = WORLD,
                 p.join()
     return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
                        weights_only=False) for r in range(world)]
+
+
+def start_reference(out_dir, mode: str) -> subprocess.Popen:
+    """``mesh_reference.py out_dir mode`` (``repro`` on its own forced
+    host devices) started in a subprocess on the CPU."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    return subprocess.Popen(
+        [sys.executable, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "mesh_reference.py"), str(out_dir),
+         mode], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def wait_reference(ref: subprocess.Popen) -> None:
+    """Wait for :func:`start_reference`'s subprocess within REF_TIMEOUT
+    (killed then) and require its success."""
+    try:
+        _, err = ref.communicate(timeout=REF_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        ref.kill()
+        ref.communicate()
+        raise
+    assert ref.returncode == 0, err[-3000:]
+
+
+def load_reference(out_dir, mode: str) -> Dict:
+    """What mode ``mode`` of ``mesh_reference.py`` wrote: its arrays by
+    key, its ``meta`` under ``"meta"``."""
+    with np.load(os.path.join(out_dir, f"{mode}.npz")) as z:
+        want = {k.replace("__", "/"): z[k] for k in z.files}
+    with open(os.path.join(out_dir, f"{mode}.json")) as fh:
+        want["meta"] = json.load(fh)
+    return want
 
 
 # ---------------------------------------------------------------------------
@@ -955,4 +992,81 @@ def head_groups_body(rank: int, out_dir: str) -> Dict:
         name, arch, H, KV = HEAD_KV3
         out[f"{name}/1x4"] = _head_forward(head_cfg(get_config, arch, H, KV),
                                            meshes["1x4"], flat, name)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_ssd_heads.py's ranks
+# ---------------------------------------------------------------------------
+
+# reduced Mamba2 configurations (SSM head dim 16) on 1 x 4: (name, arch,
+# d_model). 16 heads each, 4 a rank; and 6, whose 1.5 heads a rank do not
+# tile out_proj's rows: 2 a rank, the head at each seam run by both ranks
+SSD_CASES = (("mamba2", "mamba2-130m", 128), ("zamba2", "zamba2-1.2b", 128),
+             ("h6", "mamba2-130m", 48))
+SSD_MESH = "1x4"
+SSD_SHAPE = (4, 32)            # (B, S): two chunks of 16
+# the pin at 1 x 16, one layer each: mamba2-130m's 24 heads and
+# zamba2-1.2b's 64
+SSD_WIDE = (("mamba2", "mamba2-130m", 192), ("zamba2", "zamba2-1.2b", 512))
+SSD_WIDE_TP = 16
+
+
+def ssd_cfg(get_config, arch: str, d_model: int, n_layers=None):
+    """An SSD-heads case's configuration in either package: ``arch``
+    reduced at width ``d_model`` (``2 d_model / 16`` SSM heads), float32
+    compute, ``n_layers`` layers where given."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), d_model=d_model,
+                              compute_dtype="float32")
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+@contextlib.contextmanager
+def ssd_heads():
+    """The SSM heads of each SSD within chunks (``mamba2._ssd_intra``'s
+    ``la``, (B, nc, Q, heads)) while the enclosed code runs (a list that
+    fills)."""
+    from repro_torch.models import mamba2
+    seen = []
+    intra = mamba2._ssd_intra
+
+    def spy(la, *a):
+        seen.append(int(la.shape[-1]))
+        return intra(la, *a)
+
+    mamba2._ssd_intra = spy
+    try:
+        yield seen
+    finally:
+        mamba2._ssd_intra = intra
+
+
+def ssd_body(rank: int, out_dir: str) -> Dict:
+    """Every case of ``test_torch_ssd_heads.py`` that needs ranks: for
+    each of ``SSD_CASES`` on ``SSD_MESH`` the forward as this rank holds
+    its logits and the gradients, each with the heads of every SSD."""
+    import repro_torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models.carry import params_from_reference
+    with np.load(os.path.join(out_dir, "inputs.npz")) as z:
+        flat = {k.replace("__", "/"): z[k] for k in z.files}
+    out = {}
+    with repro_torch.use_device("cpu"):
+        mesh = make_mesh(*MESHES[SSD_MESH])
+        for name, arch, d in SSD_CASES:
+            cfg = ssd_cfg(get_config, arch, d)
+            lm = params_from_reference(cfg, _tree_from(flat,
+                                                       f"{name}/params/"),
+                                       device="cpu")
+            batch = _batch(flat, f"{name}/batch0/")
+            batch.pop("labels")
+            with ssd_heads() as heads:
+                logits = build_model(cfg).forward(lm, batch, mesh)
+            out[name] = {"forward": _np(logits), "heads": heads}
+            with ssd_heads() as heads:
+                out[f"{name}/grads"] = _grads_of(cfg, mesh, flat, name,
+                                                 f"{name}/batch0/")
+            out[f"{name}/grads"]["heads"] = heads
     return out
