@@ -131,18 +131,22 @@ Phases, each printing one JSON line:
            its lookups, to fit the phase's budget of 150 s)
   mesh     serving across ranks. (a) each rank's own body at full width,
            for every rank of a 4-way layout on the one card: llama3-8b's
-           attention (bf16, 2 x 4096) through the TP body of flash_sdpa
-           for ranks 0-3 (8 query heads over 2 KV heads each), each launch
-           held to the kernel's plain version and the four outputs,
+           attention (bf16, 2 x 4096) through the kernel on the heads of
+           ranks 0-3 (8 query heads over the 2 KV heads they read), each
+           launch held to the kernel's plain version and the four outputs,
            concatenated over heads, equal to one whole launch bit for bit;
            then the whole attention layer through ``attention_body`` in 4
            threads, each rank projecting its own query heads from its
-           columns of wq and multiplying by its rows of wo, the ranks'
-           outputs summed in float32 in this process where the mesh sums
-           them over "model", within 2 bf16 ulps of the layer output's
-           largest value of one card's layer, each B3 launch held to its
-           plain version, and each rank's materialised weight bytes beside
-           the whole layer's; phi4-mini-3.8b's attention layer at full
+           columns of wq and the 2 of 8 KV heads they read from its
+           columns of the whole wk / wv, and multiplying by its rows of
+           wo, the ranks' outputs summed in float32 in this process where
+           the mesh sums them over "model", within 2 bf16 ulps of the
+           layer output's largest value of one card's layer, each B3
+           launch held to its plain version, each rank's materialised
+           weight bytes beside the whole layer's, the KV heads of each
+           rank's launch and the rank body's ms beside its figure from
+           before the ranks projected only their KV heads
+           (MESH_LAYER_PARENT_MS); phi4-mini-3.8b's attention layer at full
            width through ``attention_body`` for the 16 ranks of tp = 16,
            which does not tile its 24 query heads: 8 blocks of 3 heads, 2
            ranks a block, each rank scoring its block's 3 heads from the
@@ -467,6 +471,11 @@ MESH_EP_ATOL = 1e-5
 # product rounded once, as the whole layer's is; their float32 sum adds
 # at most the roundings of the four shares
 MESH_LAYER_RTOL = 2 * 2.0 ** -7
+# a TP rank's body of that layer while every rank projected all 8 KV
+# heads: the least and most of two runs on an H100 80GB HBM3 at 700.00 W
+# (PERF.md section 5), printed beside this run's, where each rank
+# projects the 2 its query heads read
+MESH_LAYER_PARENT_MS = (1.255, 1.524)
 # the head blocks of a TP degree that does not tile the query heads:
 # phi4-mini-3.8b's attention layer at the production TP of 16 (24 heads:
 # gcd(24, 16) = 8 blocks of 3, 2 ranks a block), held by the same rule
@@ -2259,15 +2268,17 @@ class _Routing:
 class _FlashChecked:
     """While open, every flash_attention call of the model's layers is
     held against the kernel's plain version on the same q/k/v, at the
-    kernel's tolerances for its type; per call, its max abs error. The
-    plain version launches no kernel, so the counts are the model's."""
+    kernel's tolerances for its type; per call, its max abs error and the
+    KV heads it was given. The plain version launches no kernel, so the
+    counts are the model's."""
 
     def __enter__(self):
-        self.errs = []
+        self.errs, self.kv_heads = [], []
         self._real = layers_mod.flash_attention
 
         def checked(q, k, v, *, causal=True):
             out = self._real(q, k, v, causal=causal)
+            self.kv_heads.append(int(k.shape[2]))
             rtol, atol = fa_kernel.tolerance(q.dtype)
             name = (f"flash_attention in the prefill, launch "
                     f"{len(self.errs) + 1}, q {tuple(q.shape)} "
@@ -3366,9 +3377,10 @@ def _ep_bodies(p, cfg, x, capacity) -> tuple:
 
 
 def _mesh_tp_attention() -> dict:
-    """llama3-8b's attention at 2 x 4096, bf16, through flash_sdpa's TP
-    body for each rank of tp = 4, held to the plain version per launch
-    and, concatenated over heads, to one whole launch bit for bit."""
+    """llama3-8b's attention at 2 x 4096, bf16, through the kernel on each
+    rank's query heads and the KV heads they read for each rank of tp = 4,
+    held to the plain version per launch and, concatenated over heads, to
+    one whole launch bit for bit."""
     dev = torch.device("cuda")
     cfg = get_config(SERVE_ARCH)
     B, S = SERVE_BATCH, SERVE_PROMPT
@@ -3379,19 +3391,20 @@ def _mesh_tp_attention() -> dict:
     H_loc = H // MESH_TP
     G = H // KV
     n_kv = max(1, -(-H_loc // G))
+    # rank r's query heads and the KV heads they read, as attention_body
+    # hands them to the kernel
+    rank_qkv = [(q[:, :, r * H_loc:(r + 1) * H_loc],
+                 k[:, :, r * H_loc // G:r * H_loc // G + n_kv],
+                 v[:, :, r * H_loc // G:r * H_loc // G + n_kv])
+                for r in range(MESH_TP)]
     fa_kernel.launches = 0
-    parts = [layers_mod.flash_tp_body(q[:, :, r * H_loc:(r + 1) * H_loc],
-                                      k, v, r, MESH_TP)
-             for r in range(MESH_TP)]
+    parts = [fa_ops.flash_attention(*t) for t in rank_qkv]
     launches = fa_kernel.launches
     if launches != MESH_TP:
         raise AssertionError(f"the TP bodies launched B3 {launches} times")
     errs = []
     for r, out in enumerate(parts):
-        kv0 = r * H_loc // G
-        want = fa_kernel.flash_attention_plain(
-            q[:, :, r * H_loc:(r + 1) * H_loc], k[:, :, kv0:kv0 + n_kv],
-            v[:, :, kv0:kv0 + n_kv])
+        want = fa_kernel.flash_attention_plain(*rank_qkv[r])
         errs.append(check_close(f"TP body rank {r}", out, want,
                                 FLASH_BF16_RTOL, FLASH_BF16_ATOL))
         del want
@@ -3400,16 +3413,15 @@ def _mesh_tp_attention() -> dict:
         raise AssertionError("the TP bodies' heads differ from one whole "
                              "launch")
     layer = _mesh_tp_layer(cfg, B, S)
-    q0 = q[:, :, :H_loc]
-    k0, v0 = k[:, :, :n_kv], v[:, :, :n_kv]
+    q0, k0, v0 = rank_qkv[0]
     qt, kt, vt = (t.transpose(1, 2) for t in (q0, k0, v0))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return {"shape": f"q ({B},{S},{H},{hd}) bf16, tp {MESH_TP}: "
                      f"{H_loc} query heads over {n_kv} KV heads a rank",
             "launches": launches, "max_abs_err_by_rank": errs,
             "bitwise_equal_whole": True,
-            "rank_body_ms": time_ms(lambda: layers_mod.flash_tp_body(
-                q0, k, v, 0, MESH_TP), 10),
+            "rank_body_ms": time_ms(lambda: fa_ops.flash_attention(
+                q0, k0, v0), 10),
             "whole_ms": time_ms(lambda: fa_ops.flash_attention(q, k, v), 10),
             "rank_plain_ms": time_ms(lambda: fa_kernel.flash_attention_plain(
                 q0, k0, v0), 3),
@@ -3423,10 +3435,13 @@ def _mesh_tp_attention() -> dict:
 def _mesh_tp_layer(cfg, B: int, S: int) -> dict:
     """llama3-8b's attention layer (seeded float32 weights, bf16 input of
     B x S) through ``attention_body`` for each rank of tp = MESH_TP, in a
-    thread each: the rank's columns of wq and rows of wo, wk / wv whole.
-    Their outputs summed in float32 stand for the mesh's sum over
-    "model"; held to one card's layer within MESH_LAYER_RTOL of its
-    largest value, every B3 launch to its plain version."""
+    thread each: the rank's columns of wq and rows of wo, wk / wv whole,
+    of which each rank projects the KV heads its query heads read. Their
+    outputs summed in float32 stand for the mesh's sum over "model"; held
+    to one card's layer within MESH_LAYER_RTOL of its largest value,
+    every B3 launch to its plain version. The KV heads of each launch,
+    the rank body's ms beside MESH_LAYER_PARENT_MS, and its kernels' time
+    on the card (``_device_profile`` of 10 calls, per call)."""
     from concurrent.futures import ThreadPoolExecutor
     from types import SimpleNamespace
     dev = torch.device("cuda")
@@ -3460,11 +3475,18 @@ def _mesh_tp_layer(cfg, B: int, S: int) -> dict:
         err = check_close("TP attention layer vs one card's", summed, whole,
                           0.0, MESH_LAYER_RTOL * scale)
         rank_ms = time_ms(lambda: body(0), 10)
+        rank_prof = _device_profile(lambda: [body(0) for _ in range(10)])
         whole_ms = time_ms(lambda: layers_mod.attention_apply(
             cfg, p, x, positions, flash=True), 10)
     if whole_launches != 1 or launches != MESH_TP:
         raise AssertionError(f"B3 launched {whole_launches} times for the "
                              f"whole layer, {launches} for its ranks")
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    n_kv = max(1, H // MESH_TP // (H // KV))
+    if checked.kv_heads != [n_kv] * MESH_TP:
+        raise AssertionError(f"the ranks' launches held {checked.kv_heads} "
+                             f"KV heads, not the {n_kv} of {KV} that each "
+                             f"rank's query heads read")
     nbytes = lambda ws: sum(w.numel() * w.element_size() for w in ws)
     return {"shape": f"x ({B},{S},{cfg.d_model}) bf16, weights f32, "
                      f"tp {MESH_TP}",
@@ -3473,7 +3495,13 @@ def _mesh_tp_layer(cfg, B: int, S: int) -> dict:
             "b3_max_abs_err_by_launch": checked.errs,
             "rank_weight_bytes": [nbytes(vars(rp).values()) for rp in ranks],
             "whole_weight_bytes": nbytes(p.parameters()),
-            "rank_body_ms": rank_ms, "whole_layer_ms": whole_ms}
+            "rank_kv_heads": checked.kv_heads, "whole_kv_heads": KV,
+            "rank_body_ms": rank_ms,
+            "parent_rank_body_ms": MESH_LAYER_PARENT_MS,
+            "rank_body_device_ms": rank_prof["device_busy_s"] * 100,
+            "rank_body_idle_share": rank_prof["device_idle_share"],
+            "rank_body_top": rank_prof["top"],
+            "whole_layer_ms": whole_ms}
 
 
 def _peak_gb(fn) -> tuple:

@@ -22,8 +22,8 @@ Conventions, as in the JAX package's ``models/layers.py``:
   DTensor weight gathered over the data axes, the reference's
   ``gather_weights``, and never read whole), the input of the split
   products passes :func:`tp_enter` and the row-parallel output
-  :func:`tp_reduce`. Attention splits by query heads (the flash branch
-  launches the kernel on the rank's heads, :func:`flash_tp_body`); where
+  :func:`tp_reduce`. Attention splits by query heads, each rank
+  projecting K and V for the KV heads they read (:func:`kv_span`); where
   the TP degree does not tile them, by blocks of ``H / gcd(H, tp)``
   heads that ``tp / gcd(H, tp)`` ranks share, as XLA splits the
   reference's (:func:`head_blocks`). The SwiGLU splits by its hidden
@@ -49,9 +49,8 @@ __all__ = ["RMSNorm", "rmsnorm", "rope_freqs", "apply_rope", "apply_mrope",
            "tp_body", "tp_enter", "tp_reduce", "vocab_blocks",
            "dp_reduce", "batch_rows", "rows_of", "rows_split", "rows_like",
            "local_as", "local_rows", "seq_split",
-           "heads_tile", "kv_heads", "head_blocks", "block_kv",
-           "gather_block",
-           "flash_sdpa", "flash_tp_body",
+           "heads_tile", "kv_heads", "head_blocks", "kv_span", "block_kv",
+           "gather_block", "flash_sdpa",
            "flash_applicable", "Attention", "attention_apply",
            "attention_body",
            "attention_cache_init", "SwiGLU", "swiglu_apply", "dtype_of",
@@ -568,33 +567,28 @@ def head_blocks(q_heads: int, tp: int) -> Tuple[int, int]:
     return g, tp // g
 
 
+def kv_span(q_heads: int, kv: int, blocks: int, b: int) -> Tuple[int, int]:
+    """(first, count) of the KV heads that block ``b`` of ``blocks``
+    projects, as XLA splits the reference's K/V projections over the
+    devices of "model": where the block's query heads tile KV groups or
+    lie within one (:func:`heads_tile`), the contiguous run they read
+    (:func:`kv_heads`); otherwise all ``kv``, each query head then reading
+    its own (:func:`block_kv`)."""
+    if heads_tile(q_heads, kv, blocks):
+        return kv_heads(q_heads, kv, blocks, b)
+    return 0, kv
+
+
 def block_kv(k: torch.Tensor, q_heads: int, blocks: int,
              b: int) -> torch.Tensor:
-    """The KV heads (dim 2 of ``k``, all of them) that the query heads of
-    block ``b`` of ``blocks`` read: their contiguous run
-    (:func:`kv_heads`) where the block tiles KV groups or lies within one
-    (``_sdpa`` repeats them to the block's heads), and otherwise the KV
-    head of each query head (query head ``h`` reads ``h // G``), one per
-    query head."""
-    KV = k.shape[2]
-    if heads_tile(q_heads, KV, blocks):
-        kv0, n_kv = kv_heads(q_heads, KV, blocks, b)
-        return k[:, :, kv0:kv0 + n_kv]
+    """The KV head (dim 2 of ``k``, all of them) of each query head of
+    block ``b`` of ``blocks`` (query head ``h`` reads ``h // G``), one per
+    query head: the block's KV heads where its heads do not tile KV
+    groups (:func:`kv_span`)."""
     h_blk = q_heads // blocks
     idx = torch.arange(b * h_blk, (b + 1) * h_blk,
-                       device=k.device) // (q_heads // KV)
+                       device=k.device) // (q_heads // k.shape[2])
     return k.index_select(2, idx)
-
-
-def flash_tp_body(q_local: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  rank: int, tp: int, *, causal: bool = True) -> torch.Tensor:
-    """One rank's flash attention under tensor parallelism: q_local (B, S,
-    H / tp, hd) holds query heads ``rank * H_loc`` on; k, v (B, S, KV, hd)
-    hold every KV head. The kernel is launched on the rank's heads and
-    the KV heads they read (:func:`kv_heads`)."""
-    kv0, n_kv = kv_heads(q_local.shape[2] * tp, k.shape[2], tp, rank)
-    return flash_attention(q_local, k[:, :, kv0:kv0 + n_kv],
-                           v[:, :, kv0:kv0 + n_kv], causal=causal)
 
 
 def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh=None,
@@ -606,12 +600,13 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh=None,
     "model" axis of more than one rank, q (B, S, H, hd) holds every query
     head and this is one launch. Across the ``tp`` ranks of that axis q
     holds this rank's ``H / tp`` heads, projected by its share of the
-    query weights, and the rank launches :func:`flash_tp_body` on them;
-    the result is its heads' output."""
+    query weights, and the kernel is launched on them and the KV heads
+    they read (:func:`kv_heads`); the result is its heads' output."""
     tp, idx = _tp(mesh)
-    if tp == 1:
-        return flash_attention(q, k, v, causal=causal)
-    return flash_tp_body(q, k, v, idx, tp, causal=causal)
+    if tp > 1:
+        kv0, n_kv = kv_heads(q.shape[2] * tp, k.shape[2], tp, idx)
+        k, v = k[:, :, kv0:kv0 + n_kv], v[:, :, kv0:kv0 + n_kv]
+    return flash_attention(q, k, v, causal=causal)
 
 
 def flash_applicable(cfg: ModelConfig, q_heads: int, seq: int,
@@ -779,14 +774,15 @@ def attention_body(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     blocks, ``m = tp / g`` ranks a block: :func:`head_blocks`) is query
     heads ``(rank // m) * H / g`` on: ``p.wq`` holds their columns,
     ``p.wo`` the rank's ``H*hd / tp`` rows, its share of the block's
-    output (all of it where ``m`` is 1). ``wk`` / ``wv`` are whole, so every KV
-    head is projected and the block attends over the KV heads it reads
-    (:func:`block_kv`), through the flash kernel (:func:`flash_tp_body`)
-    where ``flash`` (the heads then tile). A decode cache holds every KV
-    head, or only the rank's (a cache split by heads over "model"), and
-    every position, or the chunk from ``cache_seq[0]`` on (the softmax
-    then reduced over ``cache_seq[1]``). Returns (the rank's share of the
-    output, which the ranks sum; cache)."""
+    output (all of it where ``m`` is 1). ``wk`` / ``wv`` are whole: a
+    prefill or train step projects the KV heads the block reads
+    (:func:`kv_span`), a decode step every KV head. The block attends
+    over them, through the flash kernel where ``flash`` (the heads then
+    tile). A decode cache holds every KV head, or only the rank's (a
+    cache split by heads over "model"), and every position, or the chunk
+    from ``cache_seq[0]`` on (the softmax then reduced over
+    ``cache_seq[1]``). Returns (the rank's share of the output, which the
+    ranks sum; cache)."""
     B, S, D = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
@@ -794,9 +790,13 @@ def attention_body(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     g = H // H_loc
     m = tp // g
     blk = rank // m
+    kv0, n_kv = (0, KV) if cache is not None else kv_span(H, KV, g, blk)
+    wk, wv = p.wk, p.wv
+    if n_kv != KV:
+        wk, wv = (w[:, kv0 * hd:(kv0 + n_kv) * hd] for w in (wk, wv))
     q = (x @ p.wq.to(x.dtype)).reshape(B, S, H_loc, hd)
-    k = (x @ p.wk.to(x.dtype)).reshape(B, S, KV, hd)
-    v = (x @ p.wv.to(x.dtype)).reshape(B, S, KV, hd)
+    k = (x @ wk.to(x.dtype)).reshape(B, S, n_kv, hd)
+    v = (x @ wv.to(x.dtype)).reshape(B, S, n_kv, hd)
     if cfg.mrope_sections:
         q = apply_mrope(q, mrope_positions, cfg.rope_theta,
                         cfg.mrope_sections)
@@ -823,10 +823,12 @@ def attention_body(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         out = _sdpa(q, cache["k"][:, :, heads], cache["v"][:, :, heads],
                     causal=False, kv_len=i + S - lo, group=group)
     elif flash:
-        out = flash_tp_body(q, k, v, rank, tp, causal=True)
-    else:
+        out = flash_attention(q, k, v, causal=True)
+    elif not heads_tile(H, KV, g):
         out = _sdpa(q, block_kv(k, H, g, blk), block_kv(v, H, g, blk),
                     causal=cfg.causal)
+    else:
+        out = _sdpa(q, k, v, causal=cfg.causal)
     out = out.reshape(B, S, H_loc * hd)
     if m > 1:
         c = p.wo.shape[0]

@@ -24,10 +24,12 @@ are ``test_torch_head_groups.py``'s sides: ``heads`` runs, on the four
 devices, each of ``torch_ranks.HEAD_CASES`` on each mesh (the forward and
 decode steps as above, ``jax.grad`` of ``loss_fn`` and three steps of
 ``build_train_step`` as ``train_mesh_reference.py`` runs them) and
-``HEAD_KV3``'s forward on 1 x 4; ``pin16`` only compiles
-``HEAD_WIDE``'s forwards on 16 devices at 1 x 16. Both write the heads
-of each compiled score ``dot`` per device (``compiled.as_text()``) to
-``DIR/<mode>.json`` beside ``DIR/<mode>.npz``.
+``HEAD_KV3``'s forward on 1 x 4, and only compiles ``KV_LLAMA``'s
+forward, train step and decode step on 2 x 2; ``pin16`` only compiles
+``KV_WIDE``'s on 16 devices at 1 x 16. Both write the heads of each
+compiled score ``dot`` per device and the columns of each K/V projection
+``dot`` per device (``compiled.as_text()``) to ``DIR/<mode>.json`` beside
+``DIR/<mode>.npz``.
 
     python tests/mesh_reference.py DIR ssd
     python tests/mesh_reference.py DIR ssd16
@@ -42,6 +44,7 @@ SSD's float32 (B, nc, heads, Q, Q) tensors per device to
 """
 
 import dataclasses
+import inspect
 import json
 import os
 import re
@@ -197,6 +200,41 @@ def _scored_heads(compiled, S: int) -> list:
             if d.split(",")[-2:] == [str(S), str(S)]]
 
 
+def _kv_columns(compiled, T: int) -> list:
+    """The columns of each float32 ``dot`` of shape (T, c) whose source is
+    ``repro``'s K or V projection (the ``p["wk"]`` / ``p["wv"]`` lines of
+    ``layers.attention_apply``, read from the stack frames a compiled
+    program's text carries): per device, (B_loc * S, c) contracting
+    ``d_model``."""
+    text = compiled.as_text()
+    tables, rows = {}, None
+    for line in text.splitlines():
+        if line in ("FileNames", "FileLocations", "StackFrames"):
+            rows = tables.setdefault(line, {})
+        elif not line.strip():
+            rows = None
+        elif rows is not None:
+            i, rest = line.split(" ", 1)
+            rows[int(i)] = rest
+    src, first = inspect.getsourcelines(L.attention_apply)
+    lines = {first + i for i, s in enumerate(src)
+             if 'p["wk"]' in s or 'p["wv"]' in s}
+    path = inspect.getsourcefile(L)
+    files = {i: f.strip('"') for i, f in tables["FileNames"].items()}
+    where = {i: (files[int(re.search(r"file_name_id=(\d+)", s).group(1))],
+                 int(re.search(r" line=(\d+)", s).group(1)))
+             for i, s in tables["FileLocations"].items()}
+    frame = {i: int(re.search(r"file_location_id=(\d+)", s).group(1))
+             for i, s in tables["StackFrames"].items()}
+    out = []
+    for n, c, f in re.findall(
+            r"= f32\[(\d+),(\d+)\]\S* dot\(.*stack_frame_id=(\d+)", text):
+        file, line = where[frame[int(f)]]
+        if file == path and line in lines and int(n) == T:
+            out.append(int(c))
+    return out
+
+
 def _ssd_heads(compiled, Q: int) -> list:
     """The heads of each float32 rank-5 tensor with a trailing (Q, Q) in a
     compiled program's text: per device (B_loc, nc, heads, Q, Q), the SSD's
@@ -235,8 +273,9 @@ def _head_forward(cfg, mesh, flat, src, key, out, meta) -> None:
     tokens = batch["tokens"]
     fwd = jax.jit(lambda p, b: api.forward(p, b, mesh),
                   in_shardings=(psh, batch_shardings(rules, batch)))
-    meta[f"{key}/heads"] = _scored_heads(fwd.lower(params, batch).compile(),
-                                         S)
+    compiled = fwd.lower(params, batch).compile()
+    meta[f"{key}/heads"] = _scored_heads(compiled, S)
+    meta[f"{key}/kv"] = _kv_columns(compiled, _rows(mesh, B, S))
     shards, meta[f"{key}/forward"] = _shards(fwd(params, batch), mesh)
     for i, x in enumerate(shards):
         out[f"{key}/forward/{i}"] = x
@@ -250,6 +289,46 @@ def _head_forward(cfg, mesh, flat, src, key, out, meta) -> None:
         steps.append(_shards(logits, mesh)[0])
     for i in range(len(steps[0])):
         out[f"{key}/decode/{i}"] = np.stack([s[i] for s in steps])
+
+
+def _rows(mesh, B: int, S: int) -> int:
+    """A device's rows of the (B * S, d_model) activations: its block of
+    the batch over "data", every position."""
+    return B // mesh.shape["data"] * S
+
+
+def _kv_compiled(cfg, mesh, key, meta) -> None:
+    """Compiles only, on abstract weights: ``cfg``'s forward jitted as in
+    ``_logits_cases``, one step of ``build_train_step`` on
+    ``make_rules(mesh)`` and one decode step of ``build_serve_step``; the
+    K/V columns of each (:func:`_kv_columns`) and the forward's scored
+    heads in ``meta``."""
+    B, S = R.HEAD_SHAPE
+    api = build_model(cfg)
+    params, axes = api.abstract_init(jax.random.PRNGKey(0))
+    rules = make_rules(mesh, fsdp=False)
+    batch = jax.eval_shape(lambda: make_batch(cfg, B, S,
+                                              jax.random.PRNGKey(0)))
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    fwd = jax.jit(lambda p, b: api.forward(p, b, mesh),
+                  in_shardings=(params_shardings(rules, axes),
+                                batch_shardings(rules, inputs)))
+    compiled = fwd.lower(params, inputs).compile()
+    meta[f"{key}/heads"] = _scored_heads(compiled, S)
+    meta[f"{key}/kv"] = _kv_columns(compiled, _rows(mesh, B, S))
+    step, _, opt_init = build_train_step(
+        api, R.train_tcfg(TrainConfig, "adamw"), make_rules(mesh),
+        donate=False)
+    meta[f"{key}/train_kv"] = _kv_columns(step.lower(
+        params, jax.eval_shape(opt_init, params),
+        jax.eval_shape(init_error_state, params), batch,
+        jax.random.PRNGKey(0)).compile(), _rows(mesh, B, S))
+    serve, _ = build_serve_step(api, rules, batch=B,
+                                max_len=R.DECODE_STEPS + 1, donate=False)
+    cache = jax.eval_shape(lambda: api.init_cache(B, R.DECODE_STEPS + 1)[0])
+    meta[f"{key}/decode_kv"] = _kv_columns(serve.lower(
+        params, cache, jax.ShapeDtypeStruct((B, 1), jnp.int32),
+        jnp.int32(0)).compile(), _rows(mesh, B, 1))
 
 
 def _head_train(cfg, mesh, flat, src, key, out, meta) -> None:
@@ -268,9 +347,11 @@ def _head_train(cfg, mesh, flat, src, key, out, meta) -> None:
         api, R.train_tcfg(TrainConfig, "adamw"), make_rules(mesh),
         donate=False)
     p, o, e = params, opt_init(params), init_error_state(params)
-    meta[f"{key}/train_heads"] = _scored_heads(step.lower(
-        p, o, e, _batch(flat, f"{src}/batch0/"),
-        jax.random.PRNGKey(0)).compile(), R.HEAD_SHAPE[1])
+    compiled = step.lower(p, o, e, _batch(flat, f"{src}/batch0/"),
+                          jax.random.PRNGKey(0)).compile()
+    meta[f"{key}/train_heads"] = _scored_heads(compiled, R.HEAD_SHAPE[1])
+    meta[f"{key}/train_kv"] = _kv_columns(compiled, _rows(mesh,
+                                                          *R.HEAD_SHAPE))
     for t in range(R.TRAIN_STEPS):
         p, o, e, m, c = step(p, o, e, _batch(flat, f"{src}/batch{t}/"),
                              jax.random.PRNGKey(t))
@@ -352,19 +433,9 @@ def heads_main(out_dir: str, mode: str) -> None:
     out, meta = {}, {}
     if mode == "pin16":
         mesh = make_mesh((1, R.HEAD_WIDE_TP), ("data", "model"))
-        B, S = R.HEAD_SHAPE
-        for name, arch, H, KV in R.HEAD_WIDE:
-            api = build_model(R.wide_cfg(get_config, arch, H, KV))
-            params, axes = api.abstract_init(jax.random.PRNGKey(0))
-            rules = make_rules(mesh, fsdp=False)
-            batch = jax.eval_shape(lambda: make_batch(
-                api.cfg, B, S, jax.random.PRNGKey(0)))
-            batch.pop("labels")
-            fwd = jax.jit(lambda p, b: api.forward(p, b, mesh),
-                          in_shardings=(params_shardings(rules, axes),
-                                        batch_shardings(rules, batch)))
-            meta[f"{name}/heads"] = _scored_heads(
-                fwd.lower(params, batch).compile(), S)
+        for name, arch, H, KV in R.KV_WIDE:
+            _kv_compiled(R.wide_cfg(get_config, arch, H, KV), mesh, name,
+                         meta)
     else:
         with np.load(os.path.join(out_dir, "inputs.npz")) as z:
             flat = {k.replace("__", "/"): z[k] for k in z.files}
@@ -378,6 +449,10 @@ def heads_main(out_dir: str, mode: str) -> None:
         name, arch, H, KV = R.HEAD_KV3
         _head_forward(R.head_cfg(get_config, arch, H, KV), meshes["1x4"],
                       flat, name, f"{name}/1x4", out, meta)
+        name, arch, H, KV = R.KV_LLAMA
+        _kv_compiled(R.head_cfg(get_config, arch, H, KV),
+                     meshes[R.KV_LLAMA_MESH], f"{name}/{R.KV_LLAMA_MESH}",
+                     meta)
     np.savez(os.path.join(out_dir, f"{mode}.npz"),
              **{k.replace("/", "__"): np.asarray(v, np.float32)
                 for k, v in out.items()})

@@ -284,7 +284,9 @@ def test_rank_leaves_match_reference(arch, shape_name, multi):
 def test_flops_equal_hand_formula():
     """Rank 0 of reduced llama3-8b's plain prefill on (2, 2): q, o, the
     SwiGLU and the head split by the tensor-parallel degree, the K/V
-    projections whole on every rank, attention ``4 B_loc S^2 H_loc hd``."""
+    projections of the ``n_kv`` KV heads the rank's query heads read (one
+    of the two here, as XLA projects them for ``repro``), attention
+    ``4 B_loc S^2 H_loc hd``."""
     cfg = get_config("llama3-8b").reduced()
     B, S, dp, tp = 4, 16, 2, 2
     with dryrun.fake_group(dp * tp):
@@ -293,10 +295,11 @@ def test_flops_equal_hand_formula():
                                  mesh)
         rec = dryrun.measure(cell)
     D, hd, F = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
-    H_loc, KV = cfg.n_heads // tp, cfg.n_kv_heads
+    H_loc = cfg.n_heads // tp
+    n_kv = max(1, H_loc // (cfg.n_heads // cfg.n_kv_heads))
     T = B // dp * S
     layer = (2 * T * D * H_loc * hd            # q
-             + 2 * 2 * T * D * KV * hd         # k, v (replicated)
+             + 2 * 2 * T * D * n_kv * hd       # k, v (the rank's KV heads)
              + 4 * (B // dp) * S * S * H_loc * hd   # q.k and p.v
              + 2 * T * H_loc * hd * D          # o
              + 3 * 2 * T * D * F // tp)        # gate, up, down

@@ -28,9 +28,17 @@ the score ``dot`` in ``repro``'s compiled program per device, at 1 x 4
 and at 1 x 16 (phi4-mini-3.8b's 24 over 8 and qwen2-vl-2b's 12 over 2,
 one narrow layer; the port's 16 ranks each on a fake process group of
 its own, its collectives moving nothing, as in the dry run).
-"""
 
-import dataclasses
+The K and V projections each rank computes (``torch_ranks.kv_columns``)
+are pinned to the columns of the K/V ``dot`` in ``repro``'s compiled
+forward and train step per device (``wk`` / ``wv`` are replicated there,
+and XLA gives each device the KV heads its query heads read): in the
+cases above, at 1 x 16 for those two and a llama3-8b-like 32 over 8 (the
+port's ranks on fake process groups), and for reduced llama3-8b on 2 x 2
+(``torch_ranks.KV_WIDE`` / ``KV_LLAMA``). The reference's decode step,
+which projects one KV head a device there as well, is recorded beside
+them.
+"""
 
 import jax
 import numpy as np
@@ -46,14 +54,21 @@ from repro.models.registry import build_model as ref_build_model
 from repro.models.registry import get_config as ref_get_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.launch.specs import make_batch
-from repro_torch.models import build_model, get_config, layers
+from repro_torch.models import get_config, layers
 from repro_torch.models.carry import tree_items
 from torch_parity import assert_flat_checksums
 
 FWD_TOL = 1e-4
 CASES = [(name, m) for name, _, _, _ in R.HEAD_CASES for m in R.MESHES]
 IDS = [f"{name}-{m}" for name, m in CASES]
+KV_NAMES = ([name for name, _, _, _ in R.KV_WIDE]
+            + [f"{R.KV_LLAMA[0]}/{R.KV_LLAMA_MESH}"])
+# the columns of each K/V projection dot of repro's compiled programs per
+# device, measured on forced host devices (head dim 32): one KV head
+# wherever a rank's heads tile KV groups or lie within one, all 3 where a
+# block of 3 heads spans 1.5 groups
+KV_COLS = 32
+KV3_COLS = 96
 
 
 def _inputs():
@@ -71,27 +86,21 @@ def _inputs():
     return flat
 
 
-def _wide_heads():
-    """Each of the port's 16 ranks' scored heads in ``HEAD_WIDE``'s
-    forwards at 1 x 16, rank by rank on a fake process group of 16."""
-    B, S = R.HEAD_SHAPE
+def _fake_ranks():
+    """``torch_ranks.kv_case`` of each of ``KV_WIDE``'s cases at 1 x 16
+    for each of the port's 16 ranks, rank by rank on a fake process group
+    of 16."""
     out = {}
     with repro_torch.use_device("cpu"):
-        for name, arch, H, KV in R.HEAD_WIDE:
+        for name, arch, H, KV in R.KV_WIDE:
             cfg = R.wide_cfg(get_config, arch, H, KV)
-            api = build_model(cfg)
-            lm = api.init(torch.Generator().manual_seed(0))
-            batch = make_batch(cfg, B, S, torch.Generator().manual_seed(1))
-            batch.pop("labels")
             out[name] = []
             for rank in range(R.HEAD_WIDE_TP):
                 dist.init_process_group("fake", store=FakeStore(), rank=rank,
                                         world_size=R.HEAD_WIDE_TP)
                 try:
                     mesh = make_mesh((1, R.HEAD_WIDE_TP), ("data", "model"))
-                    with torch.no_grad(), R.scored_heads() as heads:
-                        api.forward(lm, batch, mesh)
-                    out[name].append(heads)
+                    out[name].append(R.kv_case(cfg, mesh))
                 finally:
                     dist.destroy_process_group()
     return out
@@ -100,7 +109,7 @@ def _wide_heads():
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(each rank's results, the reference's on 4 devices, its pin on 16,
-    the port's 16 ranks' heads at 1 x 16)."""
+    the port's ranks on fake process groups)."""
     d = tmp_path_factory.mktemp("head_groups")
     flat = _inputs()
     np.savez(d / "inputs.npz", **{k.replace("/", "__"): v
@@ -108,12 +117,12 @@ def runs(tmp_path_factory):
     refs = {mode: R.start_reference(d, mode) for mode in ("heads", "pin16")}
     try:
         ranks = R.run_world(R.head_groups_body, str(d))
-        wide = _wide_heads()
+        fake = _fake_ranks()
     finally:
         for ref in refs.values():
             R.wait_reference(ref)
     return (ranks, R.load_reference(d, "heads"), R.load_reference(d, "pin16"),
-            wide)
+            fake)
 
 
 # ---------------------------------------------------------------------------
@@ -137,18 +146,27 @@ def test_head_blocks_are_the_measured_split(H, KV, tp, blocks):
 
 @pytest.mark.parametrize("H,KV", [(6, 2), (6, 1), (6, 3), (12, 3), (8, 2)])
 def test_block_kv_gives_each_query_head_its_kv_head(H, KV):
-    """Every block's KV heads, repeated to its query heads as ``_sdpa``
-    repeats them (or one per query head where the block spans part of a
-    KV group), are the KV head each query head reads, ``h // (H / KV)``."""
+    """Every block's projected KV heads (``layers.kv_span``), repeated to
+    its query heads as ``_sdpa`` repeats them where the block tiles KV
+    groups or lies within one, and otherwise one per query head
+    (``layers.block_kv``), are the KV head each query head reads,
+    ``h // (H / KV)``; a block that tiles projects only the heads it
+    reads."""
     k = torch.arange(KV, dtype=torch.float32).reshape(1, 1, KV, 1)
     for g in (1, 2, 3, 6):
         if H % g:
             continue
         for b in range(g):
-            got = layers.block_kv(k, H, g, b)
+            kv0, n_kv = layers.kv_span(H, KV, g, b)
+            got = k[:, :, kv0:kv0 + n_kv]
             n = H // g
-            got = torch.repeat_interleave(got, n // got.shape[2], dim=2)
             want = [h // (H // KV) for h in range(b * n, (b + 1) * n)]
+            if layers.heads_tile(H, KV, g):
+                assert list(range(kv0, kv0 + n_kv)) == sorted(set(want))
+                got = torch.repeat_interleave(got, n // n_kv, dim=2)
+            else:
+                assert (kv0, n_kv) == (0, KV)
+                got = layers.block_kv(got, H, g, b)
             assert got.flatten().tolist() == want, (g, b)
 
 
@@ -227,10 +245,66 @@ def test_wide_ranks_score_the_heads_reference_devices_score(runs, name):
     qwen2-vl-2b's 12 over 2: each of the port's 16 ranks scores the heads
     of ``repro``'s compiled score ``dot`` per device, 3 (8 and 4 blocks of
     3 heads, 2 and 4 ranks a block)."""
-    _, _, pin, wide = runs
+    _, _, pin, fake = runs
     ref = set(pin["meta"][f"{name}/heads"])
     assert ref == {3}
-    assert [set(h) for h in wide[name]] == [ref] * R.HEAD_WIDE_TP
+    assert [set(r["heads"]) for r in fake[name]] == [ref] * R.HEAD_WIDE_TP
+
+
+@pytest.mark.parametrize("name,mesh", CASES + [("kv3", "1x4")],
+                         ids=IDS + ["kv3-1x4"])
+def test_ranks_project_the_kv_heads_reference_devices_project(runs, name,
+                                                              mesh):
+    """Every K and V projection of every rank's forward, and of its
+    gradient, has the columns of ``repro``'s compiled K/V ``dot`` per
+    device: one KV head where a block's heads lie within one KV group,
+    all three of kv3's, whose blocks span one and a half."""
+    ranks, want, _, _ = runs
+    key = f"{name}/{mesh}"
+    cols = KV3_COLS if name == "kv3" else KV_COLS
+    n_layers = get_config("phi4-mini-3.8b").reduced().n_layers
+    assert set(want["meta"][f"{key}/kv"]) == {cols}
+    for r in ranks:
+        assert r[key]["kv"] == [(cols, cols)] * n_layers
+    if name == "kv3":
+        return
+    assert set(want["meta"][f"{key}/train_kv"]) == {cols}
+    for r in ranks:
+        assert r[f"{key}/grads"]["kv"]
+        assert set(r[f"{key}/grads"]["kv"]) == {(cols, cols)}
+
+
+@pytest.mark.parametrize("name", KV_NAMES)
+def test_wide_ranks_project_the_kv_heads_reference_devices_project(runs,
+                                                                   name):
+    """At 1 x 16 (llama3-8b's 32 heads over 8 KV heads,
+    phi4-mini-3.8b's 24 over 8, qwen2-vl-2b's 12 over 2) and for reduced
+    llama3-8b on 2 x 2 (4 over 2), each rank's K and V projections in its
+    forward and its gradient have the columns of ``repro``'s compiled K/V
+    ``dot`` per device in the forward and the train step: one KV head,
+    not all of them."""
+    ranks, heads, pin, fake = runs
+    if "/" in name:     # reduced llama3-8b on the four gloo ranks
+        meta, got = heads["meta"], [r[name] for r in ranks]
+        n_layers = get_config("llama3-8b").reduced().n_layers
+    else:
+        meta, got, n_layers = pin["meta"], fake[name], 1
+    for what in ("kv", "train_kv"):
+        assert set(meta[f"{name}/{what}"]) == {KV_COLS}, what
+    for r in got:
+        assert r["kv"] == [(KV_COLS, KV_COLS)] * n_layers
+        assert r["train_kv"]
+        assert set(r["train_kv"]) == {(KV_COLS, KV_COLS)}
+
+
+@pytest.mark.parametrize("name", KV_NAMES)
+def test_reference_decode_projects_one_kv_head_a_device(runs, name):
+    """``repro``'s compiled decode step projects one KV head a device in
+    the same cases, where the port's decode step still projects them all
+    (8, 2, 8 and 2 heads; ROADMAP Queue C, C7, open)."""
+    _, heads, pin, _ = runs
+    meta = (heads if "/" in name else pin)["meta"]
+    assert set(meta[f"{name}/decode_kv"]) == {KV_COLS}
 
 
 @pytest.mark.parametrize("name,mesh", CASES, ids=IDS)

@@ -882,6 +882,12 @@ HEAD_SHAPE = (4, 24)           # (B, S); the vlm's S: 16 patches, 8 tokens
 HEAD_WIDE = (("phi4", "phi4-mini-3.8b", 24, 8),
              ("qwen2vl", "qwen2-vl-2b", 12, 2))
 HEAD_WIDE_TP = 16
+# the K/V pin (C6): HEAD_WIDE and a llama3-8b-like 32 over 8 at 1 x 16
+# (one narrow layer each), and reduced llama3-8b (4 over 2) on 2 x 2, the
+# dry run's hand-formula case
+KV_WIDE = HEAD_WIDE + (("llama", "llama3-8b", 32, 8),)
+KV_LLAMA = ("llama", "llama3-8b", 4, 2)
+KV_LLAMA_MESH = "2x2"
 
 
 def head_cfg(get_config, arch: str, H: int, KV: int):
@@ -919,6 +925,42 @@ def scored_heads():
 
 
 @contextlib.contextmanager
+def kv_columns():
+    """The columns of the K and V projections of each prefill or train
+    step call of ``layers.attention_body`` while the enclosed code runs:
+    the products of its input ``x`` (q, k, v in that order) but the
+    first, a list of (k, v) that fills."""
+    from torch.overrides import TorchFunctionMode
+    from repro_torch.models import layers
+    seen = []
+    body = layers.attention_body
+
+    class Products(TorchFunctionMode):
+        def __init__(self, x):
+            super().__init__()
+            self.x, self.cols = x, []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if getattr(func, "__name__", "") == "matmul" and args[0] is self.x:
+                self.cols.append(int(out.shape[-1]))
+            return out
+
+    def spy(cfg, p, x, *a, **kw):
+        with Products(x) as products:
+            out = body(cfg, p, x, *a, **kw)
+        if kw.get("cache") is None:
+            seen.append(tuple(products.cols[1:]))
+        return out
+
+    layers.attention_body = spy
+    try:
+        yield seen
+    finally:
+        layers.attention_body = body
+
+
+@contextlib.contextmanager
 def whole_reads():
     """The shapes of the parameters read through ``DTensor.full_tensor``
     while the enclosed code runs (a list that fills)."""
@@ -941,7 +983,8 @@ def whole_reads():
 def _head_forward(cfg, mesh, flat, src: str) -> Dict:
     """The forward and DECODE_STEPS decode steps of ``cfg`` on ``mesh``
     (weights and batch under ``src/`` in ``flat``) as this rank holds
-    their logits, with the heads each of its scores held."""
+    their logits, with the heads each of its scores held and the columns
+    of each K/V projection of the forward."""
     from repro_torch.models import build_model
     from repro_torch.models.carry import params_from_reference
     api = build_model(cfg)
@@ -949,9 +992,9 @@ def _head_forward(cfg, mesh, flat, src: str) -> Dict:
                                device="cpu")
     batch = _batch(flat, f"{src}/batch0/")
     batch.pop("labels")
-    with scored_heads() as heads:
+    with scored_heads() as heads, kv_columns() as kv:
         logits = api.forward(lm, batch, mesh)
-    out = {"forward": _np(logits), "heads": heads,
+    out = {"forward": _np(logits), "heads": heads, "kv": kv,
            "placements": tuple(map(repr, logits.placements))}
     B = HEAD_SHAPE[0]
     cache, _ = api.init_cache(B, DECODE_STEPS + 1)
@@ -964,11 +1007,33 @@ def _head_forward(cfg, mesh, flat, src: str) -> Dict:
     return out
 
 
+def kv_case(cfg, mesh) -> Dict:
+    """``cfg``'s forward and gradient on ``mesh`` (weights and batch from
+    seeds 0 and 1, HEAD_SHAPE): the heads of each score of the forward
+    and the columns of each K/V projection of both."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.launch.steps import build_train_step, place_model
+    from repro_torch.models import build_model
+    from repro_torch.sharding.partition import make_rules
+    api = build_model(cfg)
+    lm = api.init(torch.Generator().manual_seed(0))
+    batch = make_batch(cfg, *HEAD_SHAPE, torch.Generator().manual_seed(1))
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    with torch.no_grad(), scored_heads() as heads, kv_columns() as kv:
+        api.forward(lm, inputs, mesh)
+    _, info, _ = build_train_step(api, TrainConfig(remat="none"), mesh)
+    with kv_columns() as train:
+        info["value_and_grad"](place_model(lm, make_rules(mesh)), batch)
+    return {"heads": heads, "kv": kv, "train_kv": train}
+
+
 def head_groups_body(rank: int, out_dir: str) -> Dict:
     """Every case of ``test_torch_head_groups.py`` that needs ranks: for
     each of ``HEAD_CASES`` on each mesh the forward, the decode steps,
-    the gradients (with the heads each score held) and TRAIN_STEPS
-    AdamW steps; ``HEAD_KV3``'s forward on 1 x 4."""
+    the gradients (with the heads each score held and the columns of each
+    K/V projection) and TRAIN_STEPS AdamW steps; ``HEAD_KV3``'s forward
+    on 1 x 4; :func:`kv_case` of ``KV_LLAMA``."""
     import repro_torch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import get_config
@@ -983,15 +1048,20 @@ def head_groups_body(rank: int, out_dir: str) -> Dict:
             for m, mesh in meshes.items():
                 key = f"{name}/{m}"
                 out[key] = _head_forward(cfg, mesh, flat, name)
-                with scored_heads() as heads, whole_reads() as whole:
+                with scored_heads() as heads, whole_reads() as whole, \
+                        kv_columns() as kv:
                     out[f"{key}/grads"] = _grads_of(cfg, mesh, flat, name,
                                                     f"{name}/batch0/")
-                out[f"{key}/grads"].update(heads=heads, whole_reads=whole)
+                out[f"{key}/grads"].update(heads=heads, whole_reads=whole,
+                                           kv=kv)
                 out[f"{key}/steps"] = _steps_of(cfg, mesh, "adamw", flat,
                                                 name)
         name, arch, H, KV = HEAD_KV3
         out[f"{name}/1x4"] = _head_forward(head_cfg(get_config, arch, H, KV),
                                            meshes["1x4"], flat, name)
+        name, arch, H, KV = KV_LLAMA
+        out[f"{name}/{KV_LLAMA_MESH}"] = kv_case(
+            head_cfg(get_config, arch, H, KV), meshes[KV_LLAMA_MESH])
     return out
 
 
