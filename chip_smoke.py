@@ -146,7 +146,15 @@ Phases, each printing one JSON line:
            weight bytes beside the whole layer's, the KV heads of each
            rank's launch and the rank body's ms beside its figure from
            before the ranks projected only their KV heads
-           (MESH_LAYER_PARENT_MS); phi4-mini-3.8b's attention layer at full
+           (MESH_LAYER_PARENT_MS); one decode step of that layer on a
+           cache of 2 x 4096 positions split by KV heads, each of the 4
+           rank bodies in a thread on its own 2 of the 8 KV heads,
+           projecting only those (256 of wk's and wv's 1024 columns),
+           the outputs summed in float32 against one card's decode step
+           on the whole cache and each rank's new cache entries against
+           its heads of the whole cache's, both within the same 2 bf16
+           ulps, the rank body's decode ms beside one card's;
+           phi4-mini-3.8b's attention layer at full
            width through ``attention_body`` for the 16 ranks of tp = 16,
            which does not tile its 24 query heads: 8 blocks of 3 heads, 2
            ranks a block, each rank scoring its block's 3 heads from the
@@ -476,6 +484,11 @@ MESH_LAYER_RTOL = 2 * 2.0 ** -7
 # (PERF.md section 5), printed beside this run's, where each rank
 # projects the 2 its query heads read
 MESH_LAYER_PARENT_MS = (1.255, 1.524)
+# the decode step of that layer at tp = MESH_TP on a cache split by KV
+# heads (8 over 4 ranks: 2 a rank, as the decode rules place a cache whose
+# KV heads the TP degree divides), a cache of MESH_DECODE_LEN positions
+# a row, held by the same rule
+MESH_DECODE_LEN = 4096
 # the head blocks of a TP degree that does not tile the query heads:
 # phi4-mini-3.8b's attention layer at the production TP of 16 (24 heads:
 # gcd(24, 16) = 8 blocks of 3, 2 ranks a block), held by the same rule
@@ -3413,6 +3426,7 @@ def _mesh_tp_attention() -> dict:
         raise AssertionError("the TP bodies' heads differ from one whole "
                              "launch")
     layer = _mesh_tp_layer(cfg, B, S)
+    decode = _mesh_tp_decode(cfg, B, MESH_DECODE_LEN)
     q0, k0, v0 = rank_qkv[0]
     qt, kt, vt = (t.transpose(1, 2) for t in (q0, k0, v0))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -3429,7 +3443,7 @@ def _mesh_tp_attention() -> dict:
                 qt, kt, vt, is_causal=True, enable_gqa=True), 10),
             **{f"rank_{k_}": v_ for k_, v_ in _flash_bound(
                 B, S, H_loc, n_kv, hd, True).items()},
-            "layer": layer}
+            "layer": layer, "decode": decode}
 
 
 def _mesh_tp_layer(cfg, B: int, S: int) -> dict:
@@ -3502,6 +3516,102 @@ def _mesh_tp_layer(cfg, B: int, S: int) -> dict:
             "rank_body_idle_share": rank_prof["device_idle_share"],
             "rank_body_top": rank_prof["top"],
             "whole_layer_ms": whole_ms}
+
+
+class _Products(torch.overrides.TorchFunctionMode):
+    """The widths of the products of ``x`` (``x @ w``) while the mode is
+    on, in the thread that entered it."""
+
+    def __init__(self, x):
+        super().__init__()
+        self.x, self.cols = x, []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if getattr(func, "__name__", "") == "matmul" and args[0] is self.x:
+            self.cols.append(int(out.shape[-1]))
+        return out
+
+
+def _mesh_tp_decode(cfg, B: int, L: int) -> dict:
+    """One decode step of llama3-8b's attention layer (seeded float32
+    weights, a bf16 cache of B x L positions, the last one written by the
+    step) through ``attention_body`` for each rank of tp = MESH_TP, in a
+    thread each: the rank's columns of wq and rows of wo, wk / wv whole,
+    and its own KV heads of the cache (a cache split by heads over
+    "model"), of which the rank projects only those. Their outputs summed
+    in float32 against one card's decode step on the whole cache, each
+    rank's new cache entries against the whole cache's heads, both within
+    MESH_LAYER_RTOL of the largest value; each rank's K/V projection
+    columns, the rank body's ms and its kernels' time on the card
+    (``_device_profile`` of 10 calls, per call)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from types import SimpleNamespace
+    dev = torch.device("cuda")
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    kv_loc = KV // MESH_TP
+    p = layers_mod.Attention(cfg, device=dev)
+    p.init_(torch.Generator(device=dev).manual_seed(MESH_SEED + 6))
+    g = torch.Generator(device=dev).manual_seed(MESH_SEED + 7)
+    x = torch.randn((B, 1, cfg.d_model), device=dev, dtype=torch.bfloat16,
+                    generator=g)
+    whole = {k: torch.randn((B, L, KV, hd), device=dev, dtype=torch.bfloat16,
+                            generator=g) for k in ("k", "v")}
+    pos = L - 1
+    positions = torch.full((B, 1), pos, device=dev, dtype=torch.int32)
+    ranks = [SimpleNamespace(wq=p.wq.chunk(MESH_TP, 1)[r], wk=p.wk, wv=p.wv,
+                             wo=p.wo.chunk(MESH_TP, 0)[r])
+             for r in range(MESH_TP)]
+    caches = [{k: c[:, :, r * kv_loc:(r + 1) * kv_loc].clone()
+               for k, c in whole.items()} for r in range(MESH_TP)]
+
+    def body(r):
+        return layers_mod.attention_body(cfg, ranks[r], x, positions,
+                                         rank=r, tp=MESH_TP, cache=caches[r],
+                                         cache_index=pos)[0]
+
+    def checked(r):
+        with _Products(x) as products:
+            out = body(r)
+        return out, products.cols[1:]
+
+    with torch.no_grad():
+        want, _ = layers_mod.attention_apply(cfg, p, x, positions,
+                                             cache=whole, cache_index=pos)
+        with ThreadPoolExecutor(MESH_TP) as pool:
+            outs, cols = zip(*pool.map(checked, range(MESH_TP)))
+        torch.cuda.synchronize()
+        summed = sum(o.float() for o in outs).to(want.dtype)
+        scale = float(want.float().abs().max())
+        err = check_close("TP attention decode vs one card's", summed, want,
+                          0.0, MESH_LAYER_RTOL * scale)
+        cache_err = {}
+        for k in ("k", "v"):
+            new = whole[k][:, pos]
+            got = torch.cat([c[k][:, pos] for c in caches], dim=1)
+            cache_err[k] = check_close(
+                f"TP decode's new {k} entries vs one card's", got, new, 0.0,
+                MESH_LAYER_RTOL * float(new.float().abs().max()))
+        rank_ms = time_ms(lambda: body(0), 20)
+        rank_prof = _device_profile(lambda: [body(0) for _ in range(10)])
+        whole_ms = time_ms(lambda: layers_mod.attention_apply(
+            cfg, p, x, positions, cache=whole, cache_index=pos), 20)
+    if list(cols) != [[kv_loc * hd] * 2] * MESH_TP:
+        raise AssertionError(f"the ranks' K/V projections had {list(cols)} "
+                             f"columns, not the {kv_loc * hd} of their own "
+                             f"{kv_loc} KV heads")
+    return {"shape": f"x ({B},1,{cfg.d_model}) bf16, cache ({B},{L},{KV},"
+                     f"{hd}) bf16, weights f32, tp {MESH_TP}: {kv_loc} of "
+                     f"{KV} KV heads a rank",
+            "max_abs_err_vs_one_card": err, "atol": MESH_LAYER_RTOL * scale,
+            "new_cache_max_abs_err": cache_err,
+            "rank_kv_columns": [c[0] for c in cols],
+            "whole_kv_columns": KV * hd,
+            "rank_decode_ms": rank_ms,
+            "rank_decode_device_ms": rank_prof["device_busy_s"] * 100,
+            "rank_decode_idle_share": rank_prof["device_idle_share"],
+            "rank_decode_top": rank_prof["top"],
+            "whole_decode_ms": whole_ms}
 
 
 def _peak_gb(fn) -> tuple:

@@ -776,13 +776,16 @@ def attention_body(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     ``p.wo`` the rank's ``H*hd / tp`` rows, its share of the block's
     output (all of it where ``m`` is 1). ``wk`` / ``wv`` are whole: a
     prefill or train step projects the KV heads the block reads
-    (:func:`kv_span`), a decode step every KV head. The block attends
-    over them, through the flash kernel where ``flash`` (the heads then
-    tile). A decode cache holds every KV head, or only the rank's (a
-    cache split by heads over "model"), and every position, or the chunk
+    (:func:`kv_span`). The block attends over them, through the flash
+    kernel where ``flash`` (the heads then tile). A decode cache holds
+    every KV head, or only the rank's (a cache split by heads over
+    "model", whose heads then tile), and every position, or the chunk
     from ``cache_seq[0]`` on (the softmax then reduced over
-    ``cache_seq[1]``). Returns (the rank's share of the output, which the
-    ranks sum; cache)."""
+    ``cache_seq[1]``). A decode step projects the KV heads its cache
+    holds: every one into a whole cache, the rank's query heads then
+    reading theirs (:func:`kv_heads`); only the rank's into its own, as
+    XLA projects the reference's under its decode rules. Returns (the
+    rank's share of the output, which the ranks sum; cache)."""
     B, S, D = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
@@ -790,7 +793,13 @@ def attention_body(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     g = H // H_loc
     m = tp // g
     blk = rank // m
-    kv0, n_kv = (0, KV) if cache is not None else kv_span(H, KV, g, blk)
+    if cache is None:
+        kv0, n_kv = kv_span(H, KV, g, blk)
+    elif cache["k"].shape[2] != KV:
+        # the cache holds this rank's KV heads only: project those
+        kv0, n_kv = kv_heads(H, KV, tp, rank)
+    else:
+        kv0, n_kv = 0, KV
     wk, wv = p.wk, p.wv
     if n_kv != KV:
         wk, wv = (w[:, kv0 * hd:(kv0 + n_kv) * hd] for w in (wk, wv))
@@ -807,12 +816,12 @@ def attention_body(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is not None:
-        kv0, n_kv = kv_heads(H, KV, tp, rank)
         i = int(cache_index)
-        heads = slice(kv0, kv0 + n_kv)
-        if cache["k"].shape[2] != KV:
-            # the cache holds this rank's KV heads only
-            k, v, heads = k[:, :, heads], v[:, :, heads], slice(None)
+        heads = slice(None)
+        if n_kv == KV:
+            # a whole cache: the rank's query heads read their KV heads
+            kv0, n_kv = kv_heads(H, KV, tp, rank)
+            heads = slice(kv0, kv0 + n_kv)
         lo, group = cache_seq if cache_seq is not None else (0, None)
         a, b = max(i, lo), min(i + S, lo + cache["k"].shape[1])
         if a < b:

@@ -26,9 +26,12 @@ decode steps as above, ``jax.grad`` of ``loss_fn`` and three steps of
 ``build_train_step`` as ``train_mesh_reference.py`` runs them) and
 ``HEAD_KV3``'s forward on 1 x 4, and only compiles ``KV_LLAMA``'s
 forward, train step and decode step on 2 x 2; ``pin16`` only compiles
-``KV_WIDE``'s on 16 devices at 1 x 16. Both write the heads of each
-compiled score ``dot`` per device and the columns of each K/V projection
-``dot`` per device (``compiled.as_text()``) to ``DIR/<mode>.json`` beside
+``KV_WIDE``'s on 16 devices at 1 x 16, and ``KV_DECODE``'s decode step.
+Each decode step is compiled under ``make_rules(mesh, fsdp=False)`` and
+under the rules the reference's dry run decodes with. Both write the
+heads of each compiled score ``dot`` per device, the columns of each K/V
+projection ``dot`` per device and each decode step's all-gathers of a
+whole cache (``compiled.as_text()``) to ``DIR/<mode>.json`` beside
 ``DIR/<mode>.npz``.
 
     python tests/mesh_reference.py DIR ssd
@@ -297,12 +300,50 @@ def _rows(mesh, B: int, S: int) -> int:
     return B // mesh.shape["data"] * S
 
 
+def _cache_gathers(compiled, shape) -> int:
+    """The all-gathers in a compiled program's text whose result is a
+    float32 tensor of ``shape``: a device's whole K or V cache."""
+    dims = ",".join(map(str, shape))
+    return len(re.findall(rf"= f32\[{dims}\]\S* all-gather(?:-start)?\(",
+                          compiled.as_text()))
+
+
+def _kv_decode_compiled(cfg, mesh, key, meta) -> None:
+    """Compiles only, on abstract weights: one decode step of
+    ``build_serve_step`` under ``make_rules(mesh, fsdp=False)`` and again
+    under the rules the reference's dry run decodes with (the cache's KV
+    heads over "model" where the TP degree divides them, attention heads
+    whole: ``launch/dryrun.py``'s decode branch). The K/V columns of each
+    (:func:`_kv_columns`) and its all-gathers of a device's whole K or V
+    cache (:func:`_cache_gathers`) in ``meta``."""
+    B = R.HEAD_SHAPE[0]
+    api = build_model(cfg)
+    params, _ = api.abstract_init(jax.random.PRNGKey(0))
+    cache = jax.eval_shape(lambda: api.init_cache(B, R.DECODE_STEPS + 1)[0])
+    tp = mesh.shape["model"]
+    whole = list(cache["k"].shape)
+    whole[1] //= mesh.shape["data"]
+    for name, rules in (
+            ("decode", make_rules(mesh, fsdp=False)),
+            ("decode_rules", make_rules(
+                mesh, fsdp=False,
+                kv_cache_heads_shardable=cfg.n_kv_heads % tp == 0,
+                replicate_attn_heads=True))):
+        serve, _ = build_serve_step(api, rules, batch=B,
+                                    max_len=R.DECODE_STEPS + 1, donate=False)
+        compiled = serve.lower(params, cache,
+                               jax.ShapeDtypeStruct((B, 1), jnp.int32),
+                               jnp.int32(0)).compile()
+        meta[f"{key}/{name}_kv"] = _kv_columns(compiled, _rows(mesh, B, 1))
+        meta[f"{key}/{name}_gathers"] = _cache_gathers(compiled, whole)
+
+
 def _kv_compiled(cfg, mesh, key, meta) -> None:
     """Compiles only, on abstract weights: ``cfg``'s forward jitted as in
     ``_logits_cases``, one step of ``build_train_step`` on
-    ``make_rules(mesh)`` and one decode step of ``build_serve_step``; the
-    K/V columns of each (:func:`_kv_columns`) and the forward's scored
-    heads in ``meta``."""
+    ``make_rules(mesh)`` and the decode steps of
+    :func:`_kv_decode_compiled`; the K/V columns of each
+    (:func:`_kv_columns`) and the forward's scored heads in ``meta``."""
     B, S = R.HEAD_SHAPE
     api = build_model(cfg)
     params, axes = api.abstract_init(jax.random.PRNGKey(0))
@@ -323,12 +364,7 @@ def _kv_compiled(cfg, mesh, key, meta) -> None:
         params, jax.eval_shape(opt_init, params),
         jax.eval_shape(init_error_state, params), batch,
         jax.random.PRNGKey(0)).compile(), _rows(mesh, B, S))
-    serve, _ = build_serve_step(api, rules, batch=B,
-                                max_len=R.DECODE_STEPS + 1, donate=False)
-    cache = jax.eval_shape(lambda: api.init_cache(B, R.DECODE_STEPS + 1)[0])
-    meta[f"{key}/decode_kv"] = _kv_columns(serve.lower(
-        params, cache, jax.ShapeDtypeStruct((B, 1), jnp.int32),
-        jnp.int32(0)).compile(), _rows(mesh, B, 1))
+    _kv_decode_compiled(cfg, mesh, key, meta)
 
 
 def _head_train(cfg, mesh, flat, src, key, out, meta) -> None:
@@ -436,6 +472,9 @@ def heads_main(out_dir: str, mode: str) -> None:
         for name, arch, H, KV in R.KV_WIDE:
             _kv_compiled(R.wide_cfg(get_config, arch, H, KV), mesh, name,
                          meta)
+        name, arch, H, KV = R.KV_DECODE
+        _kv_decode_compiled(R.wide_cfg(get_config, arch, H, KV), mesh, name,
+                            meta)
     else:
         with np.load(os.path.join(out_dir, "inputs.npz")) as z:
             flat = {k.replace("__", "/"): z[k] for k in z.files}

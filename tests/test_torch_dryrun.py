@@ -307,6 +307,33 @@ def test_flops_equal_hand_formula():
     assert rec["cost_analysis"]["flops"] == cfg.n_layers * layer + head
 
 
+def test_decode_flops_equal_hand_formula():
+    """Rank 0 of reduced llama3-8b's decode step on (2, 2), whose cache the
+    decode rules split by KV heads (2 over a TP degree of 2): q of the
+    rank's ``H_loc`` heads, K and V of its ``KV / tp`` cache heads only
+    (as XLA projects them for ``repro`` under those rules), the grouped
+    scores and their product with v over its cache heads and all ``L``
+    positions, o, the SwiGLU split by the tensor-parallel degree and the
+    head. A rank that projected every KV head counts more."""
+    cfg = get_config("llama3-8b").reduced()
+    B, L, dp, tp = 4, 16, 2, 2
+    with dryrun.fake_group(dp * tp):
+        mesh = make_mesh((dp, tp), ("data", "model"))
+        cell = dryrun.build_cell(cfg, ShapeConfig("t", L, B, "decode"),
+                                 mesh)
+        rec = dryrun.measure(cell)
+    D, hd, F = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    H_loc, kv_loc = cfg.n_heads // tp, cfg.n_kv_heads // tp
+    T = B // dp                                 # one new token a row
+    layer = (2 * T * D * H_loc * hd            # q
+             + 2 * 2 * T * D * kv_loc * hd     # k, v (the rank's cache heads)
+             + 4 * T * L * H_loc * hd          # q.k and p.v
+             + 2 * T * H_loc * hd * D          # o
+             + 3 * 2 * T * D * F // tp)        # gate, up, down
+    head = 2 * T * D * cfg.padded_vocab // tp
+    assert rec["cost_analysis"]["flops"] == cfg.n_layers * layer + head
+
+
 def test_ssm_flops_equal_hand_formula():
     """Rank 0 of reduced mamba2-130m's plain prefill on (2, 2): the rank's
     ``in_proj`` columns (its rows' z, its heads' x and dt, B and C

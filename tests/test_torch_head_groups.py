@@ -35,9 +35,20 @@ forward and train step per device (``wk`` / ``wv`` are replicated there,
 and XLA gives each device the KV heads its query heads read): in the
 cases above, at 1 x 16 for those two and a llama3-8b-like 32 over 8 (the
 port's ranks on fake process groups), and for reduced llama3-8b on 2 x 2
-(``torch_ranks.KV_WIDE`` / ``KV_LLAMA``). The reference's decode step,
-which projects one KV head a device there as well, is recorded beside
-them.
+(``torch_ranks.KV_WIDE`` / ``KV_LLAMA``).
+
+The decode step's K and V projections are pinned under the rules the
+reference's dry run decodes with (``make_rules(mesh, fsdp=False,
+kv_cache_heads_shardable=KV % tp == 0, replicate_attn_heads=True)``; the
+port's ``dryrun.decode_rules``): where the cache is replicated every
+device projects every KV head, where it is split by heads each projects
+its own. Those cases, and H 32 over 32 at 1 x 16 (zamba2-1.2b's
+shared-attention heads, ``torch_ranks.KV_DECODE``), hold each rank's
+decode step through ``build_serve_step`` on a cache placed by those rules
+to the compiled decode step's K/V ``dot`` per device. Under
+``make_rules(mesh, fsdp=False)`` alone the reference projects one KV head
+a device, and pays for it with an all-gather of each device's whole K
+and V cache every step: both are recorded.
 """
 
 import jax
@@ -69,6 +80,13 @@ KV_NAMES = ([name for name, _, _, _ in R.KV_WIDE]
 # block of 3 heads spans 1.5 groups
 KV_COLS = 32
 KV3_COLS = 96
+# the columns of each K/V projection dot of repro's compiled decode step
+# per device under its dry run's decode rules, measured on forced host
+# devices: every KV head where the cache is replicated (phi4 8, qwen2vl
+# 2, llama 8 at 1 x 16), the device's own where it is split by heads
+# (reduced llama3-8b's 1 of 2 on 2 x 2, kv32's 2 of 32 at 1 x 16)
+DECODE_COLS = {"phi4": 256, "qwen2vl": 64, "llama": 256,
+               f"{R.KV_LLAMA[0]}/{R.KV_LLAMA_MESH}": 32, R.KV_DECODE[0]: 64}
 
 
 def _inputs():
@@ -88,11 +106,15 @@ def _inputs():
 
 def _fake_ranks():
     """``torch_ranks.kv_case`` of each of ``KV_WIDE``'s cases at 1 x 16
-    for each of the port's 16 ranks, rank by rank on a fake process group
-    of 16."""
+    for each of the port's 16 ranks, and ``torch_ranks.kv_decode`` of
+    ``KV_DECODE``, rank by rank on a fake process group of 16."""
     out = {}
+    name, arch, H, KV = R.KV_DECODE
+    cases = [(n, a, h, kv, R.kv_case) for n, a, h, kv in R.KV_WIDE]
+    cases.append((name, arch, H, KV,
+                  lambda cfg, mesh: {"decode_kv": R.kv_decode(cfg, mesh)}))
     with repro_torch.use_device("cpu"):
-        for name, arch, H, KV in R.KV_WIDE:
+        for name, arch, H, KV, case in cases:
             cfg = R.wide_cfg(get_config, arch, H, KV)
             out[name] = []
             for rank in range(R.HEAD_WIDE_TP):
@@ -100,7 +122,7 @@ def _fake_ranks():
                                         world_size=R.HEAD_WIDE_TP)
                 try:
                     mesh = make_mesh((1, R.HEAD_WIDE_TP), ("data", "model"))
-                    out[name].append(R.kv_case(cfg, mesh))
+                    out[name].append(case(cfg, mesh))
                 finally:
                     dist.destroy_process_group()
     return out
@@ -274,6 +296,17 @@ def test_ranks_project_the_kv_heads_reference_devices_project(runs, name,
         assert set(r[f"{key}/grads"]["kv"]) == {(cols, cols)}
 
 
+def _kv_case(runs, name):
+    """(the reference's compiled meta, each of the port's ranks' results,
+    layers) of a K/V pin's case: reduced llama3-8b on the four gloo ranks,
+    or a 1 x 16 case on the fake process groups."""
+    ranks, heads, pin, fake = runs
+    if "/" in name:
+        return (heads["meta"], [r[name] for r in ranks],
+                get_config("llama3-8b").reduced().n_layers)
+    return pin["meta"], fake[name], 1
+
+
 @pytest.mark.parametrize("name", KV_NAMES)
 def test_wide_ranks_project_the_kv_heads_reference_devices_project(runs,
                                                                    name):
@@ -283,12 +316,7 @@ def test_wide_ranks_project_the_kv_heads_reference_devices_project(runs,
     forward and its gradient have the columns of ``repro``'s compiled K/V
     ``dot`` per device in the forward and the train step: one KV head,
     not all of them."""
-    ranks, heads, pin, fake = runs
-    if "/" in name:     # reduced llama3-8b on the four gloo ranks
-        meta, got = heads["meta"], [r[name] for r in ranks]
-        n_layers = get_config("llama3-8b").reduced().n_layers
-    else:
-        meta, got, n_layers = pin["meta"], fake[name], 1
+    meta, got, n_layers = _kv_case(runs, name)
     for what in ("kv", "train_kv"):
         assert set(meta[f"{name}/{what}"]) == {KV_COLS}, what
     for r in got:
@@ -299,12 +327,42 @@ def test_wide_ranks_project_the_kv_heads_reference_devices_project(runs,
 
 @pytest.mark.parametrize("name", KV_NAMES)
 def test_reference_decode_projects_one_kv_head_a_device(runs, name):
-    """``repro``'s compiled decode step projects one KV head a device in
-    the same cases, where the port's decode step still projects them all
-    (8, 2, 8 and 2 heads; ROADMAP Queue C, C7, open)."""
-    _, heads, pin, _ = runs
-    meta = (heads if "/" in name else pin)["meta"]
+    """Under ``make_rules(mesh, fsdp=False)`` alone, ``repro``'s compiled
+    decode step projects one KV head a device in the same cases. The
+    port deliberately does not decode under those rules, nor does
+    ``repro``'s dry run: they place the query heads over "model" and
+    replicate the cache, so XLA all-gathers each device's whole K and V
+    cache every step (``test_decode_rules_gather_no_cache``)."""
+    meta, _, _ = _kv_case(runs, name)
     assert set(meta[f"{name}/decode_kv"]) == {KV_COLS}
+
+
+@pytest.mark.parametrize("name", list(DECODE_COLS))
+def test_decode_ranks_project_the_kv_heads_reference_devices_project(
+        runs, name):
+    """Under the rules ``repro``'s dry run decodes with, each rank's K and
+    V projections in a decode step through ``build_serve_step`` (weights
+    and cache placed by ``dryrun.decode_rules``) have the columns of
+    ``repro``'s compiled decode step's K/V ``dot`` per device: every KV
+    head where the cache is replicated (256, 64, 256), only the rank's
+    own where it is split by heads (32 of 64 on 2 x 2, 64 of 1024 for
+    32 over 32 at 1 x 16), not all of them (ROADMAP Queue C, C7)."""
+    meta, got, n_layers = _kv_case(runs, name)
+    cols = DECODE_COLS[name]
+    assert set(meta[f"{name}/decode_rules_kv"]) == {cols}
+    for r in got:
+        assert r["decode_kv"] == [(cols, cols)] * n_layers
+
+
+@pytest.mark.parametrize("name", list(DECODE_COLS))
+def test_decode_rules_gather_no_cache(runs, name):
+    """``repro``'s compiled decode step all-gathers each device's whole K
+    and V cache (two all-gathers) under ``make_rules(mesh, fsdp=False)``,
+    which places the query heads over "model", and none under its dry
+    run's decode rules, which the port decodes with."""
+    meta, _, _ = _kv_case(runs, name)
+    assert meta[f"{name}/decode_gathers"] == 2
+    assert meta[f"{name}/decode_rules_gathers"] == 0
 
 
 @pytest.mark.parametrize("name,mesh", CASES, ids=IDS)

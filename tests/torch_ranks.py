@@ -888,6 +888,10 @@ HEAD_WIDE_TP = 16
 KV_WIDE = HEAD_WIDE + (("llama", "llama3-8b", 32, 8),)
 KV_LLAMA = ("llama", "llama3-8b", 4, 2)
 KV_LLAMA_MESH = "2x2"
+# the decode pin's own case (C7): zamba2-1.2b's shared-attention heads, 32
+# over 32, at 1 x 16 (one narrow layer), whose cache the decode rules
+# split by heads: 2 a rank
+KV_DECODE = ("kv32", "llama3-8b", 32, 32)
 
 
 def head_cfg(get_config, arch: str, H: int, KV: int):
@@ -925,11 +929,12 @@ def scored_heads():
 
 
 @contextlib.contextmanager
-def kv_columns():
+def kv_columns(decode: bool = False):
     """The columns of the K and V projections of each prefill or train
-    step call of ``layers.attention_body`` while the enclosed code runs:
-    the products of its input ``x`` (q, k, v in that order) but the
-    first, a list of (k, v) that fills."""
+    step call of ``layers.attention_body`` while the enclosed code runs
+    (of each decode step call where ``decode``): the products of its
+    input ``x`` (q, k, v in that order) but the first, a list of (k, v)
+    that fills."""
     from torch.overrides import TorchFunctionMode
     from repro_torch.models import layers
     seen = []
@@ -949,7 +954,7 @@ def kv_columns():
     def spy(cfg, p, x, *a, **kw):
         with Products(x) as products:
             out = body(cfg, p, x, *a, **kw)
-        if kw.get("cache") is None:
+        if (kw.get("cache") is not None) == decode:
             seen.append(tuple(products.cols[1:]))
         return out
 
@@ -1007,10 +1012,35 @@ def _head_forward(cfg, mesh, flat, src: str) -> Dict:
     return out
 
 
+def kv_decode(cfg, mesh) -> list:
+    """The columns of each K/V projection of one decode step of ``cfg``
+    (weights from seed 0, HEAD_SHAPE's batch) through
+    ``build_serve_step`` on ``mesh`` under the dry run's decode rules
+    (``dryrun.decode_rules``: the cache's KV heads over "model" where the
+    TP degree divides them), its weights and cache placed by them."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import build_serve_step, place_model
+    from repro_torch.models import build_model
+    from repro_torch.sharding.partition import batch_shardings, place
+    api = build_model(cfg)
+    B, L = HEAD_SHAPE[0], DECODE_STEPS + 1
+    rules = dryrun.decode_rules(cfg, ShapeConfig("t", L, B, "decode"), mesh)
+    lm = place_model(api.init(torch.Generator().manual_seed(0)), rules)
+    step, info = build_serve_step(api, rules, batch=B, max_len=L)
+    cache = dryrun._placed(api.init_cache(B, L)[0], info["cache"], mesh)
+    tokens = torch.zeros((B, 1), dtype=torch.int32)
+    tokens = place(tokens, mesh, batch_shardings(rules, {"t": tokens})["t"])
+    with torch.no_grad(), kv_columns(decode=True) as kv:
+        step(lm, cache, tokens, 0)
+    return kv
+
+
 def kv_case(cfg, mesh) -> Dict:
     """``cfg``'s forward and gradient on ``mesh`` (weights and batch from
     seeds 0 and 1, HEAD_SHAPE): the heads of each score of the forward
-    and the columns of each K/V projection of both."""
+    and the columns of each K/V projection of both, and of a decode step
+    (:func:`kv_decode`)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch.specs import make_batch
     from repro_torch.launch.steps import build_train_step, place_model
@@ -1025,7 +1055,8 @@ def kv_case(cfg, mesh) -> Dict:
     _, info, _ = build_train_step(api, TrainConfig(remat="none"), mesh)
     with kv_columns() as train:
         info["value_and_grad"](place_model(lm, make_rules(mesh)), batch)
-    return {"heads": heads, "kv": kv, "train_kv": train}
+    return {"heads": heads, "kv": kv, "train_kv": train,
+            "decode_kv": kv_decode(cfg, mesh)}
 
 
 def head_groups_body(rank: int, out_dir: str) -> Dict:
