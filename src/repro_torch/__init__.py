@@ -12,6 +12,8 @@ CUDA C++ (``kernels/csrc``) built with ``nvcc`` at their first launch.
   scenarios   Workload x ConsistencyStrategy x CrashPlan sweeps,
               including ``sweep(engine="fork", mode="batched")``
   kernels     the CUDA kernels, their wrappers and plain versions
+  tracing     the trainer's spans and counters, in memory, on the
+              profiler's clock
 """
 
 from .device import get_device, use_device

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from .. import tracing
 from ..models.carry import opt_tree, reference_tree, tree_items
 
 __all__ = ["LedgerRecord", "ChecksumLedger", "flatten_checksums",
@@ -93,7 +94,8 @@ class ChecksumLedger:
             self._fh = open(self.path, "a", buffering=1)
         self._fh.write(rec.to_json() + "\n")
         self._fh.flush()
-        os.fsync(self._fh.fileno())  # the "CLFLUSH": a few KB, synchronous
+        with tracing.span("adcc.fsync"):
+            os.fsync(self._fh.fileno())  # the "CLFLUSH": a few KB, synchronous
 
     def close(self) -> None:
         if self._fh is not None:

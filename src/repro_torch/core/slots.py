@@ -2,13 +2,16 @@
 
 A copy of the JAX package's ``core/slots.py``. ``SlotStore`` and
 ``AsyncSlotWriter`` are numpy and threads, unchanged but for the writer's
-timing of each slot (``write_seconds``). ``flatten_state`` /
-``unflatten_state`` take the port's state ``{"params": LM, "opt": ...}``
-to and from the keys and stacked layout that the reference's
-``flatten_state`` gives for its own state (``params/layers/attn/wq`` as
-(L, in, out), ``opt/m/...``, ``opt/step`` int32), so a slot written by
-either package restores in the other. The copy to the host is
-synchronous, on the caller's thread, as in the reference.
+span ``slot.write`` (``repro_torch.tracing``) for each slot (its
+``step`` the state's, fed into ``write_seconds`` when the slot is
+complete) and its counter ``slot.bytes`` of the arrays it saves.
+``flatten_state`` / ``unflatten_state`` take the port's state
+``{"params": LM, "opt": ...}`` to and from the keys and stacked layout
+that the reference's ``flatten_state`` gives for its own state
+(``params/layers/attn/wq`` as (L, in, out), ``opt/m/...``, ``opt/step``
+int32), so a slot written by either package restores in the other. The
+copy to the host is synchronous, on the caller's thread, as in the
+reference.
 
 The heavy training state (params + optimizer state) is written
 round-robin into K slots with **no synchronous barrier** — the
@@ -37,11 +40,11 @@ import os
 import queue
 import shutil
 import threading
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import tracing
 from ..models.carry import (global_tensor, nest, opt_from_reference,
                             opt_tree, params_from_reference, reference_tree,
                             to_host, tree_items)
@@ -178,26 +181,30 @@ class AsyncSlotWriter:
             slot, step, flat = self._q.get()
             with self._busy:
                 if not self._crashed.is_set():
-                    self._write(slot, step, flat)
+                    with tracing.span("slot.write", step, timed=True) as sp:
+                        done = self._write(slot, step, flat)
+                    if done:
+                        self.write_seconds.append(sp.seconds)
             del flat    # the host copy is not held while the queue waits
             if self._q.empty():
                 self._idle.set()
 
-    def _write(self, slot: int, step: int, flat) -> None:
-        t0 = time.perf_counter()
+    def _write(self, slot: int, step: int, flat) -> bool:
+        """Whether the slot was written whole."""
         d = self.store.slot_dir(slot)
         os.makedirs(d, exist_ok=True)
         with open(os.path.join(d, "meta.json"), "w") as fh:
             json.dump({"step": step, "complete": False}, fh)
         for key, arr in sorted(flat.items()):
             if self._crashed.is_set():
-                return  # power loss mid-write: slot is torn
+                return False  # power loss mid-write: slot is torn
             np.save(os.path.join(d, key.replace("/", "__") + ".npy"), arr)
+            tracing.count("slot.bytes", arr.nbytes)
         if self._crashed.is_set():
-            return
+            return False
         with open(os.path.join(d, "meta.json"), "w") as fh:
             json.dump({"step": step, "complete": True}, fh)
-        self.write_seconds.append(time.perf_counter() - t0)
+        return True
 
     def drain(self, timeout: float = 60.0) -> None:
         self._idle.wait(timeout)

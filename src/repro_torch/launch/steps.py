@@ -47,6 +47,15 @@ summed over the data axes (``layers.tp_weights``), the optimizer state
 is placed as :func:`build_opt_shardings` says and updated shard by
 shard, and ``grad_norm`` and the checksums are global sums.
 :func:`build_serve_step` serves across ranks.
+
+The step marks its phases with spans (``repro_torch.tracing``):
+``train.forward`` (the compute copy, its refill ``train.cast``, and the
+loss), ``train.backward`` (the gradients, recomputation under ``remat``
+included, and the release of the autograd graph), ``train.optimizer``
+(compression, the update, the parameters' ``add_``) and
+``train.checksums`` (the squared gradients' sums, the norm, and the
+three checksum trees). Each phase frees what it made, so that the step's
+code between them is short and a trace names the host's time by phase.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, Shard
 
+from .. import tracing
 from ..configs.base import TrainConfig
 from ..core.acc_state import leaf_checksum
 from ..models import layers as L
@@ -293,19 +303,23 @@ def build_train_step(api: ModelApi, tcfg: TrainConfig, rules=None, *,
     def value_and_grad(lm: nn.Module, batch):
         """(loss, {parameter name: float32 gradient}) through the compute
         copy, as the step takes them."""
-        params = dict(lm.named_parameters())
-        cc = box.get("compute")
-        if cc is None or next(cc.parameters()).device != \
-                next(lm.parameters()).device:
-            cc = box["compute"] = _compute_copy(lm)
-        cparams = dict(cc.named_parameters())
-        with torch.no_grad():
-            for n, p in params.items():
-                cparams[n].copy_(p)
-        loss = api.loss_fn(cc, batch, mesh, remat=tcfg.remat)
-        gl = torch.autograd.grad(loss, list(cparams.values()))
-        return loss.detach(), {n: g.to(params[n].dtype)
-                               for n, g in zip(cparams, gl)}
+        with tracing.span("train.forward"):
+            params = dict(lm.named_parameters())
+            cc = box.get("compute")
+            if cc is None or next(cc.parameters()).device != \
+                    next(lm.parameters()).device:
+                cc = box["compute"] = _compute_copy(lm)
+            cparams = dict(cc.named_parameters())
+            with tracing.span("train.cast"), torch.no_grad():
+                for n, p in params.items():
+                    cparams[n].copy_(p)
+            loss = api.loss_fn(cc, batch, mesh, remat=tcfg.remat)
+        with tracing.span("train.backward"):
+            gl = torch.autograd.grad(loss, list(cparams.values()))
+            grads = {n: g.to(params[n].dtype) for n, g in zip(cparams, gl)}
+            del gl
+            loss = loss.detach()    # the graph is released here, in the span
+        return loss, grads
 
     def train_step(lm: nn.Module, opt_state, err_state, batch, generator):
         if not donate:
@@ -313,29 +327,34 @@ def build_train_step(api: ModelApi, tcfg: TrainConfig, rules=None, *,
                                         _clone(err_state))
         with deterministic_algorithms(deterministic):
             loss, grads = value_and_grad(lm, batch)
-            params = dict(lm.named_parameters())
             with torch.no_grad():
-                if use_compression:
-                    grads, err_state = compress_decompress(grads, err_state,
-                                                           generator)
-                upd, opt_state = opt_update(opt_view(grads), opt_state,
-                                            opt_view(params))
-                updates = from_view(upd)
-                del upd
-                for n, p in params.items():
-                    p.add_(updates[n].to(p.dtype))
-                sq = {n: torch.sum(torch.square(g.to(torch.float32)))
-                      for n, g in grads.items()}
-                del grads
-                gnorm = torch.sqrt(torch.stack(
-                    [leaf_checksum(x) for _, x in
-                     tree_items(reference_tree(cfg, sq))]).sum())
-                metrics = {"loss": loss.to(torch.float32), "grad_norm": gnorm}
-                checksums = {
-                    "params": tree_checksums(reference_tree(cfg, params)),
-                    "opt": tree_checksums(opt_tree(cfg, opt_state)),
-                    "updates": tree_checksums(reference_tree(cfg, updates)),
-                }
+                with tracing.span("train.optimizer"):
+                    params = dict(lm.named_parameters())
+                    if use_compression:
+                        grads, err_state = compress_decompress(
+                            grads, err_state, generator)
+                    upd, opt_state = opt_update(opt_view(grads), opt_state,
+                                                opt_view(params))
+                    updates = from_view(upd)
+                    del upd
+                    for n, p in params.items():
+                        p.add_(updates[n].to(p.dtype))
+                with tracing.span("train.checksums"):
+                    sq = {n: torch.sum(torch.square(g.to(torch.float32)))
+                          for n, g in grads.items()}
+                    del grads
+                    gnorm = torch.sqrt(torch.stack(
+                        [leaf_checksum(x) for _, x in
+                         tree_items(reference_tree(cfg, sq))]).sum())
+                    metrics = {"loss": loss.to(torch.float32),
+                               "grad_norm": gnorm}
+                    checksums = {
+                        "params": tree_checksums(reference_tree(cfg, params)),
+                        "opt": tree_checksums(opt_tree(cfg, opt_state)),
+                        "updates": tree_checksums(
+                            reference_tree(cfg, updates)),
+                    }
+                    del sq, updates     # freed in the span, not at the return
         return lm, opt_state, err_state, metrics, checksums
 
     info = {"remat": tcfg.remat, "optimizer": tcfg.optimizer, "mesh": mesh,

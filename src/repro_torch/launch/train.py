@@ -19,9 +19,19 @@ Also includes the step-time straggler monitor (flags slow hosts for the
 controller to replace — simulated single-host here, interface real).
 
 The trainer runs on :func:`repro_torch.get_device` (the card; the CPU
-only inside ``use_device("cpu")``) and records where its time goes in
-``timings``: seconds of each ledger append, each host copy of the state,
-each synchronous slot write, and the recovery's reads and checks.
+only inside ``use_device("cpu")``) and marks its phases with spans
+(``repro_torch.tracing``): ``train.run``, its ``train.recover`` (with
+``recover.read`` and ``recover.verify``) and one ``train.step`` a step,
+whose children are ``train.batch``, the step's own (``train.forward``,
+``train.backward``, ``train.optimizer``, ``train.checksums``: see
+launch/steps.py), ``train.loss_sync`` (the host waits for the card), and
+the ADCC layer's ``adcc.record``, ``adcc.ledger_append`` (with
+``adcc.fsync``), ``adcc.host_copy``, ``adcc.submit`` and
+``adcc.sync_write``; then ``adcc.drain``. The spans of the same regions
+feed ``timings`` (seconds of each ledger append, each host copy of the
+state, each synchronous slot write, and the recovery's reads and checks
+of the slots it verified), ``step_seconds`` and the straggler monitor,
+whether or not a collector records them.
 
 Across the ranks of a ``DeviceMesh`` (``mesh=``, from Python in every
 spawned rank, as the reference's trainer takes its mesh) every rank runs
@@ -40,7 +50,6 @@ import argparse
 import dataclasses
 import os
 import tempfile
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -54,6 +63,7 @@ from ..core.slots import (AsyncSlotWriter, SlotStore, flatten_state,
                           unflatten_state)
 from ..data.pipeline import SyntheticPipeline
 from ..device import get_device
+from .. import tracing
 from ..models.registry import build_model, get_config
 from ..optim import init_error_state
 from .mesh import is_ranked, single_device_mesh
@@ -177,21 +187,15 @@ class ADCCTrainer:
             rec = recs.get(step)
             if rec is None:
                 continue
-            t0 = time.perf_counter()
-            flat = self.store.read_slot(slot)
-            if flat is None:
-                continue
-            try:
-                state = unflatten_state(template, flat, device=self.device)
-            except (KeyError, ValueError):
+            with tracing.span("recover.read", step, timed=True) as read:
+                state = self._read_state(slot, template)
+            if state is None:
                 continue  # torn slot: missing/short leaves
-            del flat
-            t1 = time.perf_counter()
-            ok, bad = verify_state_against_record(
-                state["params"], state["opt"], rec)
-            t2 = time.perf_counter()
-            self.timings["recover_read"].append(t1 - t0)
-            self.timings["recover_verify"].append(t2 - t1)
+            with tracing.span("recover.verify", step, timed=True) as check:
+                ok, bad = verify_state_against_record(
+                    state["params"], state["opt"], rec)
+            self.timings["recover_read"].append(read.seconds)
+            self.timings["recover_verify"].append(check.seconds)
             self.recovery_checks.append((slot, step, bad))
             if ok:
                 return (state["params"], state["opt"], step + 1,
@@ -201,6 +205,16 @@ class ADCCTrainer:
         return None, None, 0, (f"no slot verified (ledger reaches step "
                                f"{newest}); restart from scratch")
 
+    def _read_state(self, slot: int, template):
+        """The slot's state on the device, or None where it is torn."""
+        flat = self.store.read_slot(slot)
+        if flat is None:
+            return None
+        try:
+            return unflatten_state(template, flat, device=self.device)
+        except (KeyError, ValueError):
+            return None
+
     def _record(self, t: int, loss: float, cks) -> LedgerRecord:
         return LedgerRecord(
             step=t, rng_seed=self.tcfg.seed, cursor=[self.tcfg.seed, t + 1, 0],
@@ -208,17 +222,23 @@ class ADCCTrainer:
             cks_opt=flatten_checksums(cks["opt"]),
             cks_updates=flatten_checksums(cks["updates"]), loss=loss)
 
-    def _host_state(self, params, opt_state):
-        t0 = time.perf_counter()
-        flat = flatten_state({"params": params, "opt": opt_state},
-                             keep=self.writes)
-        self.timings["host_copy"].append(time.perf_counter() - t0)
+    def _host_state(self, params, opt_state, t: int):
+        with tracing.span("adcc.host_copy", t, timed=True) as sp:
+            flat = flatten_state({"params": params, "opt": opt_state},
+                                 keep=self.writes)
+        self.timings["host_copy"].append(sp.seconds)
         return flat
 
     # -- main loop ------------------------------------------------------------------
     def run(self, steps: int, crash_at_step: Optional[int] = None,
             log_every: int = 10) -> TrainerResult:
-        params, opt_state, start, report = self._try_recover()
+        with tracing.span("train.run"):
+            return self._run(steps, crash_at_step, log_every)
+
+    def _run(self, steps: int, crash_at_step: Optional[int],
+             log_every: int) -> TrainerResult:
+        with tracing.span("train.recover"):
+            params, opt_state, start, report = self._try_recover()
         resumed_from = start - 1 if start > 0 else None
         if params is None:
             params = self.api.init(torch.Generator(device=self.device)
@@ -233,46 +253,23 @@ class ADCCTrainer:
         times: List[float] = []
         t = start
         while t < steps:
-            t0 = time.perf_counter()
-            batch = {k: torch.from_numpy(v).to(self.device)
-                     for k, v in self.pipeline.batch_at(t).items()}
-            params, opt_state, err_state, metrics, cks = self.step_fn(
-                params, opt_state, err_state, batch,
-                step_generator(self.tcfg.seed, t, self.device))
-            loss = float(metrics["loss"])
-            losses.append(loss)
-            slot_step = (t + 1) % self.slot_every == 0
+            with tracing.span("train.step", t, timed=True) as step:
+                with tracing.span("train.batch", t):
+                    batch = {k: torch.from_numpy(v).to(self.device)
+                             for k, v in self.pipeline.batch_at(t).items()}
+                params, opt_state, err_state, metrics, cks = self.step_fn(
+                    params, opt_state, err_state, batch,
+                    step_generator(self.tcfg.seed, t, self.device))
+                with tracing.span("train.loss_sync", t):
+                    loss = float(metrics["loss"])
+                losses.append(loss)
+                self._adcc(t, loss, cks, params, opt_state)
 
-            # (3) synchronous tiny ledger write — the "one cache line"
-            if self.writes and (self.mode == "adcc"
-                                or (self.mode == "sync" and slot_step)):
-                rec = self._record(t, loss, cks)
-                ta = time.perf_counter()
-                self.ledger.append(rec)
-                self.timings["ledger_append"].append(time.perf_counter() - ta)
-            if self.mode == "adcc" and slot_step:
-                # (4) async fence-free heavy-state write
-                flat = self._host_state(params, opt_state)
-                if self.writes:
-                    self.writer.submit(t, flat)
-                del flat
-            elif self.mode == "sync" and slot_step:
-                # traditional checkpoint: blocking full copy + ledger
-                flat = self._host_state(params, opt_state)
-                tw = time.perf_counter()
-                if self.writes:
-                    self.store.write_slot(
-                        self.store.slot_for_step((t + 1) // self.slot_every),
-                        t, flat)
-                del flat
-                self.timings["slot_write"].append(time.perf_counter() - tw)
-
-            dt_step = time.perf_counter() - t0
-            times.append(dt_step)
-            self.monitor.record(t, dt_step)
+            times.append(step.seconds)
+            self.monitor.record(t, step.seconds)
             if log_every and t % log_every == 0:
                 print(f"step {t:5d} loss {loss:.4f} "
-                      f"({dt_step*1e3:.0f} ms)", flush=True)
+                      f"({step.seconds*1e3:.0f} ms)", flush=True)
 
             if crash_at_step is not None and t == crash_at_step:
                 self.crash()
@@ -280,12 +277,43 @@ class ADCCTrainer:
             t += 1
 
         if self.writer is not None:
-            self.writer.drain()
+            with tracing.span("adcc.drain"):
+                self.writer.drain()
         self.ledger.close()
         self._barrier()
         self._final_params = params  # for tests
         self._final_opt = opt_state
         return TrainerResult(steps - 1, losses, resumed_from, report, times)
+
+    def _adcc(self, t: int, loss: float, cks, params, opt_state) -> None:
+        """The ADCC layer's work after step ``t``: per the mode, the
+        ledger record and a slot step's host copy and write."""
+        slot_step = (t + 1) % self.slot_every == 0
+        # (3) synchronous tiny ledger write — the "one cache line"
+        if self.writes and (self.mode == "adcc"
+                            or (self.mode == "sync" and slot_step)):
+            with tracing.span("adcc.record", t):
+                rec = self._record(t, loss, cks)
+            with tracing.span("adcc.ledger_append", t, timed=True) as sp:
+                self.ledger.append(rec)
+            self.timings["ledger_append"].append(sp.seconds)
+        if self.mode == "adcc" and slot_step:
+            # (4) async fence-free heavy-state write
+            flat = self._host_state(params, opt_state, t)
+            if self.writes:
+                with tracing.span("adcc.submit", t):
+                    self.writer.submit(t, flat)
+            del flat
+        elif self.mode == "sync" and slot_step:
+            # traditional checkpoint: blocking full copy + ledger
+            flat = self._host_state(params, opt_state, t)
+            with tracing.span("adcc.sync_write", t, timed=True) as sp:
+                if self.writes:
+                    self.store.write_slot(
+                        self.store.slot_for_step((t + 1) // self.slot_every),
+                        t, flat)
+                del flat
+            self.timings["slot_write"].append(sp.seconds)
 
     def crash(self) -> None:
         """Simulated node failure: in-flight async writes torn, process
