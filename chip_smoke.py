@@ -33,6 +33,14 @@ Phases, each printing one JSON line:
            (2,4096,12,128) and k/v (2,4096,2,128): six query heads per KV
            head and a head count that is not a power of two, f32 and
            bf16, timed beside its bound, its plain version and SDPA.
+           ssd_state_pass (the SSD's state passing, forward and backward)
+           against the per-chunk loop it replaces at the benchmark's
+           mamba2-130m training shape, zamba2-1.2b's layer, a TP rank's
+           heads of each and ragged shapes: forward bit for bit, the
+           contributions' gradient equal to the loop's autograd, the
+           decays' within 1e-5 of their terms' magnitudes, two backward
+           calls bit for bit; each direction timed beside its byte bound
+           and the loop.
            Then every route no arch reaches, each held to its plain
            version and timed beside its bound, its plain version and its
            library call: abft_matmul's f16, mixed f16/f32 and f64-in-f32
@@ -105,8 +113,9 @@ Phases, each printing one JSON line:
            across chunks, attention, casts); long_500k's decode shape
            (batch 1, a step at position 524 287 and one at 16) against a
            cache of seeded values, zamba2's 30.1 GB, beside its bytes
-           bound; and no launch of any kernel of the port (neither family
-           reaches one, in the reference as here)
+           bound; and no launch of any kernel of the port but the SSD's
+           state passing (ssd_state_pass), which every Mamba2 layer's
+           prefill launches
   serve_vlm_audio the vlm and audio families at full width and depth,
            seeded weights on the card: qwen2-vl-2b's flash prefill of 2 x
            4096 (1024 patches, 3072 text tokens), whose 28 launches of
@@ -282,6 +291,8 @@ from repro_torch.kernels.checksum_verify import kernel as cv_kernel  # noqa: E40
 from repro_torch.kernels.checksum_verify import ops as cv_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as ss_kernel  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ss_ops  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.core.acc_state import (ChecksumLedger,  # noqa: E402
                                         LedgerRecord, flatten_checksums)
@@ -916,6 +927,178 @@ def _tile_sums_checks(dev) -> list:
     return out
 
 
+def _decays_loop(a, S_c):
+    """The plain state passing on the decays themselves, differentiated
+    by autograd: the loop that the kernel pair's autograd function
+    replaces."""
+    state = torch.zeros_like(S_c[:, 0])
+    states_in = []
+    for c in range(S_c.shape[1]):
+        states_in.append(state)
+        state = state * a[:, c][:, :, None, None] + S_c[:, c]
+    return torch.stack(states_in, dim=1)
+
+
+def _bits_equal(x, y) -> bool:
+    return x.shape == y.shape and torch.equal(x.view(torch.int32),
+                                              y.view(torch.int32))
+
+
+# (label, B, nc, H, hd, N, layout) of the state-passing checks: the
+# benchmark's training shape, zamba2-1.2b's layer at the serve phase's
+# prefill, one TP rank's heads of each at tp 16, and ragged ones
+SSD_SCAN_CASES = (
+    ("mamba2-130m train 8 x 4096", 8, 32, 24, 64, 128, "einsum"),
+    ("zamba2-1.2b prefill 2 x 4096", 2, 32, 64, 64, 64, "einsum"),
+    ("mamba2-130m tp 16 rank (2 heads)", 8, 32, 2, 64, 128, "einsum"),
+    ("zamba2-1.2b tp 16 rank (4 heads)", 2, 32, 4, 64, 64, "einsum"),
+    ("one chunk", 2, 1, 24, 64, 128, "einsum"),
+    ("three chunks, five heads", 3, 3, 5, 64, 128, "einsum"),
+    ("hd * N = 35 (one-wide)", 2, 5, 3, 7, 5, "einsum"),
+    ("hd * N = 132, partial warp", 3, 4, 3, 12, 11, "einsum"),
+    ("every other chunk of a stack (strided)", 2, 6, 3, 16, 32, "strided"),
+    ("rows off 16 bytes (one-wide)", 2, 4, 3, 16, 32, "offset"),
+    ("(hd, N) transposed (one copy)", 2, 4, 3, 16, 32, "transposed"),
+)
+
+
+def _ssd_scan_inputs(dev, B, nc, H, hd, N, layout, seed):
+    """Summed log decays (B, nc, H) and contributions (B, nc, H, hd, N)
+    on the card, the latter in ``layout``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    la_tot = -3.0 * torch.rand((B, nc, H), generator=g, device=dev)
+    if layout == "strided":
+        S_c = torch.randn((B, 2 * nc, H, hd, N), generator=g,
+                          device=dev)[:, ::2]
+    elif layout == "offset":
+        flat = torch.randn(B * nc * H * hd * N + 1, generator=g, device=dev)
+        S_c = flat[1:].view(B, nc, H, hd, N)
+    elif layout == "transposed":
+        S_c = torch.randn((B, nc, H, N, hd), generator=g,
+                          device=dev).transpose(3, 4)
+    else:
+        S_c = torch.randn((B, nc, H, hd, N), generator=g, device=dev)
+    return la_tot, S_c
+
+
+def _ssd_scan_checks(dev) -> list:
+    """ssd_state_pass against the loop on the card at every case of
+    SSD_SCAN_CASES: the forward through the public route bit for bit
+    against the loop on the log decays; the contributions' gradient equal
+    to the loop's autograd; the decays' gradient within 1e-5 of the sum
+    of its terms' magnitudes (summation order only); two backward calls
+    equal bit for bit."""
+    out = []
+    for i, (label, B, nc, H, hd, N, layout) in enumerate(SSD_SCAN_CASES):
+        la_tot, S_c = _ssd_scan_inputs(dev, B, nc, H, hd, N, layout, 33 + i)
+        before = ss_kernel.launches
+        got = ss_ops.state_pass(la_tot, S_c)
+        want = ss_kernel.state_pass_plain(la_tot, S_c)
+        torch.cuda.synchronize()
+        if ss_kernel.launches != before + 1:
+            raise AssertionError(f"ssd_state_pass {label}: the CUDA route "
+                                 f"did not launch the kernel")
+        if not _bits_equal(got, want):
+            raise AssertionError(
+                f"ssd_state_pass {label}: forward differs from the loop, "
+                f"max abs err {max_abs_err(got, want)}")
+        a = torch.exp(la_tot).requires_grad_(True)
+        s = S_c.detach().clone().requires_grad_(True)
+        G = torch.randn(S_c.shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(i))
+        states = _decays_loop(a, s)
+        da_p, ds_p = (torch.autograd.grad(states, (a, s), G)
+                      if states.requires_grad else
+                      (torch.zeros_like(a), torch.zeros_like(s)))
+        k_out = ss_ops._StatePass.apply(a, s)
+        da_k, ds_k = torch.autograd.grad(k_out, (a, s), G)
+        da_k2, ds_k2 = torch.autograd.grad(ss_ops._StatePass.apply(a, s),
+                                           (a, s), G)
+        torch.cuda.synchronize()
+        if not _bits_equal(k_out, states.detach()):
+            raise AssertionError(f"ssd_state_pass {label}: forward on the "
+                                 f"decays differs from the loop")
+        if not torch.equal(ds_k, ds_p):
+            raise AssertionError(
+                f"ssd_state_pass {label}: dS_c differs from the loop's "
+                f"autograd, max abs err {max_abs_err(ds_k, ds_p)}")
+        if not (_bits_equal(da_k, da_k2) and _bits_equal(ds_k, ds_k2)):
+            raise AssertionError(f"ssd_state_pass {label}: two backward "
+                                 f"calls differ")
+        scale = (ds_p * states.detach()).abs().sum(dim=(-1, -2))
+        gap = (da_k - da_p).abs()
+        if bool((gap > 1e-5 * scale).any()):
+            raise AssertionError(
+                f"ssd_state_pass {label}: da beyond 1e-5 of its terms' "
+                f"magnitudes, {float((gap / scale.clamp_min(1e-30)).max())}")
+        out.append({"case": f"ssd_state_pass {label} {(B, nc, H, hd, N)}",
+                    "layout": layout, "forward_bitwise": True,
+                    "ds_equal": True, "ds_bitwise": _bits_equal(ds_k, ds_p),
+                    "backward_repeats_bitwise": True,
+                    "da_max_gap_over_terms": float(
+                        (gap / scale.clamp_min(1e-30)).max()),
+                    "rtol": 1e-5})
+    return out
+
+
+def _ssd_scan_record(dev) -> dict:
+    """ssd_state_pass at the benchmark's training shape (mamba2-130m,
+    batch 8 x 4096: B 8, nc 32, H 24, hd 64, N 128) and at zamba2-1.2b's
+    prefill layer, each direction timed beside its byte bound and the
+    loop it replaces (forward; forward and backward through autograd)."""
+    rows = []
+    for label, B, nc, H, hd, N, _ in SSD_SCAN_CASES[:2]:
+        la_tot, S_c = _ssd_scan_inputs(dev, B, nc, H, hd, N, "einsum", 7)
+        a = torch.exp(la_tot)
+        s = ss_kernel.row_view(S_c)
+        states = ss_kernel.state_pass_fwd_cuda(a, s)
+        G = torch.randn_like(states)
+        n = B * nc * H * hd * N
+        fwd_bound = 1e3 * 8.0 * n / PEAK_BYTES_PER_S
+        bwd_bound = 1e3 * 12.0 * n / PEAK_BYTES_PER_S
+        fwd_ms = time_ms(lambda: ss_kernel.state_pass_fwd_cuda(a, s), 20)
+        bwd_ms = time_ms(lambda: ss_kernel.state_pass_bwd_cuda(
+            a, states, G), 20)
+        ar = a.clone().requires_grad_(True)
+        sr = S_c.clone().requires_grad_(True)
+        G5 = G.view(S_c.shape)
+
+        def kernel_both():
+            torch.autograd.grad(ss_ops._StatePass.apply(ar, sr), (ar, sr), G5)
+
+        def loop_both():
+            torch.autograd.grad(_decays_loop(ar, sr), (ar, sr), G5)
+
+        rows.append({
+            "shape": f"{label}: (B, nc, H, hd, N) {(B, nc, H, hd, N)}",
+            "forward_ms": fwd_ms, "forward_bound_ms": fwd_bound,
+            "forward_bound_share": fwd_bound / fwd_ms,
+            "backward_ms": bwd_ms, "backward_bound_ms": bwd_bound,
+            "backward_bound_share": bwd_bound / bwd_ms,
+            "bound_by": "bytes",
+            "plain_forward_ms": time_ms(
+                lambda: ss_kernel.state_pass_plain(la_tot, S_c), 5),
+            "kernel_fwd_bwd_ms": time_ms(kernel_both, 10),
+            "plain_fwd_bwd_ms": time_ms(loop_both, 3),
+        })
+        del la_tot, S_c, a, s, states, G, ar, sr, G5
+        torch.cuda.empty_cache()
+    head = rows[0]
+    return {
+        "name": "ssd_state_pass", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_state_pass.cu",
+        "replaces": "none (the port's per-chunk loop in "
+                    "models/mamba2.py::_ssd_chunk_scan)",
+        "shape": head["shape"], "launches": None,
+        "tolerance": "forward bit for bit; dS_c equal; da rtol 1e-5 of "
+                     "its terms' magnitudes",
+        "ms": head["forward_ms"], "bound_ms": head["forward_bound_ms"],
+        "bound_by": "bytes", "plain_ms": head["plain_forward_ms"],
+        "library_ms": None, "library_call": None,
+        "rows": rows,
+    }
+
+
 def phase_kernels() -> list:
     """Returns the contract's per-kernel records, ``launches`` still to be
     filled in by the sweep phase."""
@@ -923,6 +1106,7 @@ def phase_kernels() -> list:
     t0 = time.perf_counter()
     checks = _matmul_checks(dev) + _tile_sums_checks(dev)
     checks += _flash_checks(dev)
+    checks += _ssd_scan_checks(dev)
     emit({"phase": "kernel_checks", "cases": checks})
 
     records = []
@@ -1004,6 +1188,7 @@ def phase_kernels() -> list:
     del V, x, row, col, rowp, colp
     records.append(_flash_record(dev))
     torch.cuda.empty_cache()
+    records.append(_ssd_scan_record(dev))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     return records
 
@@ -1794,6 +1979,7 @@ def phase_kv() -> None:
     for spec in KV_WORKLOADS:
         # counts to zero just before the path, read just after
         mm_kernel.launches = cv_kernel.launches = fa_kernel.launches = 0
+        ss_kernel.launches = 0
         batched.reset_profile()
         batched_engine.reset_stats()
         t0 = time.perf_counter()
@@ -2794,9 +2980,11 @@ def _long_decode(cfg, api, lm, param_bytes: int) -> dict:
 def phase_serve_ssm() -> None:
     """mamba2-130m (ssm) and zamba2-1.2b (hybrid) at full width and depth
     through the port's model API, random weights from seeded generators
-    on the card. Neither family launches a kernel of the port: Mamba2 is
-    torch ops, and the hybrid's shared attention takes the plain branch,
-    as the reference's (no flash branch)."""
+    on the card. Mamba2's state passing across chunks launches the
+    port's ``ssd_state_pass`` forward kernel once a layer a forward; no
+    other kernel of the port runs: the rest of Mamba2 is torch ops, and
+    the hybrid's shared attention takes the plain branch, as the
+    reference's (no flash branch)."""
     for arch in SSM_ARCHS:
         gc.collect()
         torch.cuda.empty_cache()
@@ -2819,6 +3007,7 @@ def _serve_recurrent(arch: str) -> None:
 
     # counts to zero just before the model's path, read after all of it
     mm_kernel.launches = cv_kernel.launches = fa_kernel.launches = 0
+    ss_kernel.launches = 0
     t0 = time.perf_counter()
     logits = api.forward(lm, batch)
     torch.cuda.synchronize()
@@ -2881,9 +3070,12 @@ def _serve_recurrent(arch: str) -> None:
     peak = torch.cuda.max_memory_allocated()
     long = _long_decode(cfg, api, lm, param_bytes)
     launches = _launch_counts()
-    if any(launches.values()):
-        raise AssertionError(f"{arch} launched {launches}: neither family "
-                             f"reaches a kernel of the port")
+    if any(launches.values()) or not ss_kernel.launches:
+        raise AssertionError(f"{arch} launched {launches} and "
+                             f"{ss_kernel.launches} ssd_state_pass: only the "
+                             f"SSD's state passing reaches a kernel of the "
+                             f"port")
+    launches["ssd_state_pass"] = ss_kernel.launches
     del lm, batch
     emit({"phase": "serve_ssm", "arch": arch, "family": cfg.family,
           "n_layers": cfg.n_layers, "depth_cut": None,

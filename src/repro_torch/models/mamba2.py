@@ -3,8 +3,10 @@
 The JAX package's ``models/mamba2.py`` in torch ops (it reaches no Pallas
 kernel there either). The full-sequence path is the chunked SSD: within
 a chunk the recurrence is a masked (semiseparable) product, across chunks
-a loop carries the (heads, head_dim, state) state. Decode is the
-recurrent update, one token at a time, O(1) in the sequence's length.
+a scan carries the (heads, head_dim, state) state (on the card one
+hand-written kernel each way, ``kernels/ssd_scan``; elsewhere the
+reference's loop). Decode is the recurrent update, one token at a time,
+O(1) in the sequence's length.
 
 Layout as in the reference: ``in_proj`` emits [z | x | B | C | dt], a
 depthwise causal conv (width 4) runs over [x | B | C], a decay ``A`` per
@@ -35,6 +37,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..kernels.ssd_scan.ops import state_pass
 from . import layers as L
 
 __all__ = ["Mamba2", "mamba2_apply", "mamba2_body", "mamba2_decode_step",
@@ -146,22 +149,17 @@ def _ssd_intra(la: torch.Tensor, Cc: torch.Tensor, Bc: torch.Tensor,
 def _ssd_chunk_scan(la: torch.Tensor, Cc: torch.Tensor, Bc: torch.Tensor,
                     xdt: torch.Tensor) -> torch.Tensor:
     """Across chunks: each chunk's contribution to the (B, H, hd, N)
-    state, a loop that carries the state and emits the state *entering*
-    each chunk, and each position's output from that state, decayed to
-    it. Shapes as :func:`_ssd_intra`'s."""
-    Bb, nc, _, nheads = la.shape
-    hd, N = xdt.shape[-1], Bc.shape[-1]
+    state, the state passing that carries the state and emits the state
+    *entering* each chunk (``kernels/ssd_scan``: one kernel launch each
+    way on the card, a loop over chunks elsewhere), and each position's
+    output from that state, decayed to it. Shapes as
+    :func:`_ssd_intra`'s."""
     la_cum = torch.cumsum(la, dim=2)                   # (B,nc,Q,H)
     la_tot = la_cum[:, :, -1, :]                       # (B,nc,H)
     decay_to_end = torch.exp(la_tot[:, :, None, :] - la_cum)  # (B,nc,Q,H)
     # state contribution of each chunk: (B,nc,H,hd,N)
     S_c = torch.einsum("bcqn,bcqhp->bchpn", Bc, xdt * decay_to_end[..., None])
-    state = torch.zeros((Bb, nheads, hd, N), dtype=F32, device=la.device)
-    states_in = []
-    for c in range(nc):
-        states_in.append(state)
-        state = state * torch.exp(la_tot[:, c])[:, :, None, None] + S_c[:, c]
-    states_in = torch.stack(states_in, dim=1)          # (B,nc,H,hd,N)
+    states_in = state_pass(la_tot, S_c)                # (B,nc,H,hd,N)
     # inter-chunk output: C_t · decay(t) · state_in
     return (torch.einsum("bcqn,bchpn->bcqhp", Cc, states_in)
             * torch.exp(la_cum)[..., None])

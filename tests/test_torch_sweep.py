@@ -178,7 +178,8 @@ def test_sharded_sweep_equals_serial():
                                      shard_retries=0))
     assert sharded == serial == _reference_measure("mm")
     assert port_driver.shard_launches == {"abft_matmul": 0, "tile_sums": 0,
-                                          "flash_attention": 0}
+                                          "flash_attention": 0,
+                                          "ssd_state_pass": 0}
 
 
 @pytest.mark.parametrize("mode,reason,want", [
